@@ -148,3 +148,10 @@ static __device__ __forceinline__ unsigned int ordered_bits(float x) {
     if (x == 0.0f) x = 0.0f;  // -0.0 and +0.0 compare equal
     return __float_as_uint(x);
 }
+
+// JAX's scatter index rule (mode="drop"): a negative index counts from the
+// end; anything still outside [0, n) is dropped (returns -1).
+static __device__ __forceinline__ long long jax_index(long long i, long long n) {
+    if (i < 0) i += n;
+    return (i >= 0 && i < n) ? i : -1;
+}

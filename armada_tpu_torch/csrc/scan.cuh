@@ -1,0 +1,88 @@
+// Order-preserving stream compaction, K-C's design: per-block flag counts,
+// one exclusive scan over the block counts, then a pass in which each block
+// ranks its flags with warp ballots.  No host synchronisation and no
+// torch.nonzero.  The kernels take the flag as a functor `bool f(long long
+// i)` (false past the end), so K-C's packed decode (csrc/compact.cu), K-H's
+// gq splice (csrc/slab.cu) and K-J's key and failed-gang lists
+// (csrc/explain.cu) share one implementation.
+#pragma once
+
+#include "common.cuh"
+
+#define SCAN_BLOCK 1024
+
+static inline int scan_blocks(long long n) {
+    const long long nb = (n + SCAN_BLOCK - 1) / SCAN_BLOCK;
+    return nb > 0 ? (int)nb : 1;
+}
+
+// The flag of a u8 array: i < n and (flags[i] != 0) == want.
+struct U8Flag {
+    const u8* flags;
+    long long n;
+    u8 want;
+    __device__ __forceinline__ bool operator()(long long i) const {
+        return i < n && (flags[i] != 0) == (want != 0);
+    }
+};
+
+// counts[b] = number of flagged i in block b.
+template <class Flag>
+static __global__ void __launch_bounds__(SCAN_BLOCK) scan_count_kernel(Flag flag, int* counts) {
+    const long long i = (long long)blockIdx.x * SCAN_BLOCK + threadIdx.x;
+    const int c = __syncthreads_count(flag(i) ? 1 : 0);
+    if (threadIdx.x == 0) counts[blockIdx.x] = c;
+}
+
+// Exclusive scan of counts[0..nb) in place (one thread); returns the total.
+static __device__ __forceinline__ int scan_serial(int* counts, int nb) {
+    int run = 0;
+    for (int b = 0; b < nb; ++b) {
+        const int c = counts[b];
+        counts[b] = run;
+        run += c;
+    }
+    return run;
+}
+
+// Exclusive scan of counts[0..nb) in place; the total goes to *total.
+static __global__ void scan_offsets_kernel(int* counts, int nb, int* total) {
+    if (threadIdx.x != 0 || blockIdx.x != 0) return;
+    const int run = scan_serial(counts, nb);
+    if (total) *total = run;
+}
+
+// The rank of this thread's flag among the flagged threads of its block
+// (lower threads first).  Every thread of the block must call it.
+static __device__ __forceinline__ int block_rank(bool f, int* warp_tot) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const unsigned m = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) warp_tot[warp] = __popc(m);
+    __syncthreads();
+    if (threadIdx.x == 0) scan_serial(warp_tot, SCAN_BLOCK / 32);
+    __syncthreads();
+    return warp_tot[warp] + __popc(m & ((1u << lane) - 1u));
+}
+
+// dst[rank] = i for the flagged i, ranks below cap (the ascending index
+// list of jnp.nonzero(size=cap); the caller fills dst with -1 first).
+template <class Flag>
+static __global__ void __launch_bounds__(SCAN_BLOCK)
+    scan_index_kernel(Flag flag, const int* offsets, int* dst, int cap) {
+    __shared__ int warp_tot[SCAN_BLOCK / 32];
+    const long long i = (long long)blockIdx.x * SCAN_BLOCK + threadIdx.x;
+    const bool f = flag(i);
+    const int rank = offsets[blockIdx.x] + block_rank(f, warp_tot);
+    if (f && rank < cap) dst[rank] = (int)i;
+}
+
+// dst[rank] = src[i] for the flagged i (a compaction of values).
+template <class Flag>
+static __global__ void __launch_bounds__(SCAN_BLOCK)
+    scan_value_kernel(Flag flag, const int* offsets, const int* src, int* dst) {
+    __shared__ int warp_tot[SCAN_BLOCK / 32];
+    const long long i = (long long)blockIdx.x * SCAN_BLOCK + threadIdx.x;
+    const bool f = flag(i);
+    const int rank = offsets[blockIdx.x] + block_rank(f, warp_tot);
+    if (f) dst[rank] = src[i];
+}

@@ -22,7 +22,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("fair_shares.cu", "round.cu", "compact.cu")
+SOURCES = ("fair_shares.cu", "round.cu", "compact.cu", "slab.cu", "verify.cu", "explain.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,6 +109,21 @@ def library() -> ctypes.CDLL:
         lib.armada_compact.restype = ci
         lib.armada_compact_args_size.argtypes = []
         lib.armada_compact_args_size.restype = ci
+        lib.armada_slab_scatter.argtypes = [vp, vp]
+        lib.armada_slab_scatter.restype = ci
+        lib.armada_slab_splice.argtypes = [vp, vp]
+        lib.armada_slab_splice.restype = ci
+        lib.armada_verify.argtypes = [vp, vp]
+        lib.armada_verify.restype = ci
+        lib.armada_explain.argtypes = [vp, vp]
+        lib.armada_explain.restype = ci
+        lib.armada_explain_len.argtypes = [vp]
+        lib.armada_explain_len.restype = ctypes.c_longlong
+        for name in ("armada_slab_args_size", "armada_slab_group_size",
+                     "armada_splice_args_size", "armada_verify_args_size",
+                     "armada_explain_args_size"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ci
         _LIB = lib
     return _LIB
 

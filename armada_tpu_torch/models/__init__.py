@@ -3,8 +3,13 @@
 `problem` builds the dense problem from host job/node/queue objects (numpy),
 `state` moves it to a device, `fair_scheduler` runs the round (the CUDA
 kernels on a card, the plain version on the CPU), and `problem` decodes the
-result back to ids.  This is the serial single-pool path: one round for one
-pool, with the gang-transaction rollback loop.
+result back to ids.  The steady-state path keeps the problem on the device
+across cycles instead: `incremental.IncrementalBuilder` turns each cycle's
+submits, leases and removals into a `slab.DeltaBundle`, and
+`slab.DeviceDeltaCache` scatters it into the resident problem.  Every round
+can be verified (`verify`) and, on its cadence, explained (`explain`).  This
+is the serial single-pool path: one round for one pool, with the
+gang-transaction rollback loop.
 """
 
 from __future__ import annotations
@@ -42,22 +47,97 @@ def _kernel_kwargs(problem, ctx) -> dict:
     )
 
 
-def run_round_on_device(problem, ctx, config, device="cuda", device_problem=None):
+def run_round_on_device(problem, ctx, config, device="cuda", device_problem=None,
+                        shadow_work=(), host_problem=None):
     """(result, outcome): run the round on a built problem and decode it,
-    including the gang-transaction rollback loop.  `problem` is the host
-    (numpy) problem; `device_problem` may supply it already on `device`."""
+    including the gang-transaction rollback loop, round verification (when
+    armed, models/verify.py) and the explain pass (on its cadence,
+    models/explain.py).
+
+    `problem` is the host problem -- a SchedulingProblem of numpy arrays, or
+    any object with its small per-round fields (`market`; the incremental
+    path passes DeltaBundle.stats_view()).  `device_problem` supplies the
+    problem already on `device`, as a value or as a zero-arg callable
+    producing it (DeviceDeltaCache.apply inside the round); without it the
+    problem is uploaded.  `shadow_work`: zero-arg callables run once between
+    the dispatch and the first blocking fetch (decision-independent work,
+    such as the next submits and their slab prefetch).  `host_problem` (a
+    problem or a thunk, e.g. DeltaBundle.materialize) is accepted for the
+    JAX package's signature; the port has no CPU failover rung that would
+    read it yet (ROADMAP item 8).  RoundVerificationError propagates:
+    nothing is re-run quietly."""
     device = _resolve_device(device)
     if config.enable_prefer_large_job_ordering and not bool(problem.market):
         raise NotImplementedError("prefer_large ordering is not ported yet")
-    dp = device_problem if device_problem is not None else problem_from_numpy(problem, device)
-    return _round_body(dp, ctx, _kernel_kwargs(problem, ctx), device)
+    from armada_tpu_torch.models import explain as _explain
+
+    explain_armed = _explain.explain_due(getattr(ctx, "pool", ""))
+    dp = device_problem() if callable(device_problem) else device_problem
+    if dp is None:
+        dp = problem_from_numpy(problem, device)
+    return _round_body(dp, ctx, _kernel_kwargs(problem, ctx), device, shadow_work,
+                       explain_armed)
 
 
-def _round_body(device_problem, ctx, kernel_kwargs, device):
-    """One complete round against device-resident tensors: kernel, decode,
-    and the rollback loop."""
+class _RoundHandle:
+    """What the dispatch half hands the finish half."""
+
+    __slots__ = ("dp", "ctx", "kernel_kwargs", "device", "result", "finish", "ver_check",
+                 "exp_dispatched", "explain_armed", "verify_armed", "pool")
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+def _dispatch_body(device_problem, ctx, kernel_kwargs, device, shadow_work=(),
+                   explain_armed=False) -> _RoundHandle:
+    """The round's dispatch half: the round, the compaction and the
+    verify/explain passes are enqueued on the stream without a host sync,
+    then the shadow work runs."""
+    from armada_tpu_torch.models import explain as _explain
+    from armada_tpu_torch.models import verify as _verify
+
+    pool = getattr(ctx, "pool", "")
     result = schedule_round(device_problem, device=device, **kernel_kwargs)
-    outcome = begin_decode(result, ctx)()
+    verify_armed = _verify.verify_enabled()
+    finish = begin_decode(result, ctx)
+    # Verification rides behind the compaction; its verdict is checked
+    # between the compact fetch and the host decode, so a corrupted round
+    # never reaches decode.
+    ver_check = None
+    if verify_armed:
+        ver_dispatched = _verify.dispatch_verify(device_problem, result, finish.dispatched, ctx)
+        if ver_dispatched is not None:
+
+            def ver_check():
+                finish.fetch()  # blocking compact fetch (stashes the raw bytes)
+                _verify.finish_verify(ver_dispatched, ctx, pool=pool)
+
+    exp_dispatched = None
+    if explain_armed:
+        exp_dispatched = _explain.dispatch_explain(device_problem, result, ctx)
+    for fn in shadow_work:
+        fn()
+    return _RoundHandle(
+        dp=device_problem, ctx=ctx, kernel_kwargs=kernel_kwargs, device=device, result=result,
+        finish=finish, ver_check=ver_check, exp_dispatched=exp_dispatched,
+        explain_armed=explain_armed, verify_armed=verify_armed, pool=pool,
+    )
+
+
+def _finish_body(h: _RoundHandle):
+    """The round's fetch half: the verdict, the decode, the gang-transaction
+    rollback loop (each re-run verified too) and the explain fetch."""
+    from armada_tpu_torch.models import explain as _explain
+    from armada_tpu_torch.models import verify as _verify
+
+    ctx, kernel_kwargs, device = h.ctx, h.kernel_kwargs, h.device
+    result = h.result
+    exp_dispatched = h.exp_dispatched
+    if h.ver_check is not None:
+        h.ver_check()
+    outcome = h.finish()
 
     # Gang-transaction rollback: if a split gang's sibling placed but another
     # sub-gang failed, decode unwound the sibling -- but evictions its
@@ -69,36 +149,71 @@ def _round_body(device_problem, ctx, kernel_kwargs, device):
     # attempt cap bounds latency, and past it the partial gangs are forced
     # out so no half-gang ever stands.
     attempts = 0
+    device_problem = h.dp
     while attempts < 4:
         kill: list = []
         if outcome.unwound_groups:
-            kill.extend(
-                gi for gi in range(ctx.num_real_gangs)
-                if ctx.gang_group[gi] in outcome.unwound_groups
+            # Group tags live only on multi-member units under the
+            # vectorized representation, and slab contexts have G ~ backlog
+            # slots: never range-scan num_real_gangs unless gangs are
+            # list-represented.
+            tagged = (
+                ctx.gang_members_over.keys()
+                if ctx.gang_members is None
+                else range(ctx.num_real_gangs)
             )
+            kill.extend(gi for gi in tagged if ctx.gang_group[gi] in outcome.unwound_groups)
         kill.extend(_partial_running_gangs(ctx, device_problem, outcome))
         if not kill:
             break
         attempts += 1
+        # a new g_valid tensor: the problem the caller holds is not written
         g_valid = device_problem.g_valid.clone()
         g_valid[torch.as_tensor(sorted(set(kill)), dtype=torch.long,
                                 device=g_valid.device)] = False
         device_problem = device_problem._replace(g_valid=g_valid)
         result = schedule_round(device_problem, device=device, **kernel_kwargs)
-        outcome = begin_decode(result, ctx)()
+        fin = begin_decode(result, ctx)
+        if h.verify_armed:
+            # every attempt is verified between its fetch and its decode
+            vd = _verify.dispatch_verify(device_problem, result, fin.dispatched, ctx)
+            if vd is not None:
+                fin.fetch()
+                _verify.finish_verify(vd, ctx, pool=h.pool)
+        outcome = fin()
+    if attempts and h.explain_armed:
+        # attribution describes the final (post-rollback) round: re-dispatch once
+        exp_dispatched = _explain.dispatch_explain(device_problem, result, ctx)
     if attempts >= 4:
         _force_preempt_partials(ctx, outcome)
+    if exp_dispatched is not None:
+        outcome.explain = _explain.finish_explain(exp_dispatched, ctx, outcome)
     outcome.pool_totals = ctx.pool_total_atoms
     return result, outcome
 
 
+def _round_body(device_problem, ctx, kernel_kwargs, device, shadow_work=(),
+                explain_armed=False):
+    """One complete round against device-resident tensors: dispatch and
+    finish back to back."""
+    return _finish_body(_dispatch_body(device_problem, ctx, kernel_kwargs, device,
+                                       shadow_work, explain_armed))
+
+
 def _iter_partial_gangs(ctx, outcome):
     """Yield (run_indices, retained_job_ids) for each running gang this round
-    preempted only partially."""
+    preempted only partially.  ctx.running_gangs may be a zero-arg callable
+    (the incremental assembles build the mapping lazily); it is resolved
+    only when a round preempted something."""
     if not outcome.preempted or not ctx.running_gangs:
         return
+    rg = ctx.running_gangs
+    if callable(rg):
+        rg = ctx.running_gangs = rg()  # cache across re-runs
+        if not rg:
+            return
     pre = set(outcome.preempted)
-    for ris in ctx.running_gangs.values():
+    for ris in rg.values():
         retained = [
             jid for ri in ris if (jid := ctx.run_job_id(int(ri))) not in pre
         ]

@@ -173,12 +173,41 @@ class HostContext:
     # members or loses all (the reference evicts the remains of partially
     # evicted gangs and re-schedules them as one all-or-nothing unit).
     running_gangs: dict = dataclasses.field(default_factory=dict)
+    # Vectorized decode support (models/incremental.py): per-gang single job
+    # id as bytes (b"" for evictee slots and multi-member units), overrides
+    # for multi-member units, and per-run job ids as bytes.  When set,
+    # gang_members / run_job_ids may be None and decode_result takes the
+    # numpy path -- a 1M-gang Python loop in decode would cost the time the
+    # incremental builder saves.
+    gang_ids_vec: Optional[np.ndarray] = None
+    gang_members_over: dict = dataclasses.field(default_factory=dict)
+    run_ids_vec: Optional[np.ndarray] = None
+    # Static node-type id -> hardware type name ("" = the untyped default)
+    # for the real types of this round's NodeTypeIndex; explain's per-type
+    # fragmentation merges the device's per-static-type rows onto hardware
+    # types through it.
+    type_names: list = dataclasses.field(default_factory=list)
+    # The compact decode buffer exactly as this round's fetch received it
+    # (stashed by _parse_compact, overwritten per round; None on the
+    # full-pull fallback).  Round verification (models/verify.py)
+    # re-derives the fingerprint from these bytes, so a corrupted transfer
+    # surfaces as a mismatch instead of a committed round.
+    last_compact_np: Optional[np.ndarray] = None
 
     def members_of(self, gi: int) -> list:
-        return self.gang_members[gi]
+        """Member job ids of gang `gi` under either representation."""
+        if self.gang_members is not None:
+            return self.gang_members[gi]
+        over = self.gang_members_over.get(gi)
+        if over is not None:
+            return over
+        jid = self.gang_ids_vec[gi]
+        return [jid.decode()] if jid else []
 
     def run_job_id(self, ri: int) -> str:
-        return self.run_job_ids[ri]
+        if self.run_job_ids is not None:
+            return self.run_job_ids[ri]
+        return self.run_ids_vec[ri].decode()
 
 
 @dataclasses.dataclass
@@ -216,6 +245,101 @@ class RoundOutcome:
     # re-runs without the doomed gangs to roll them back (the reference's
     # gang-txn rollback, nodedb.go:347).
     unwound_groups: frozenset = frozenset()
+    # Unschedulable-reason attribution (models/explain.py ExplainOutcome):
+    # set on explain-cadence rounds, None otherwise.
+    explain: Optional[object] = None
+
+
+class LazyJobIds:
+    """List-like over a numpy byte-id array, decoded on demand.
+
+    A round can retire whole unfeasible key classes, putting ~the entire
+    backlog into `failed`; materialising a million Python strings costs
+    seconds per cycle at 1M jobs.  Consumers that only count pay O(1); only
+    consumers that actually iterate pay the decode.
+    """
+
+    __slots__ = ("_raw", "_extra")
+
+    def __init__(self, raw=None, extra=None):
+        self._raw = raw if raw is not None and raw.size else None
+        self._extra = list(extra) if extra else []
+
+    def __len__(self):
+        return (self._raw.size if self._raw is not None else 0) + len(self._extra)
+
+    def __iter__(self):
+        if self._raw is not None:
+            # decode in chunks: a bounded consumer (itertools.islice) must
+            # not pay a whole-array unicode conversion up front
+            width = self._raw.dtype.itemsize
+            for start in range(0, self._raw.size, 4096):
+                for s in self._raw[start : start + 4096].astype(f"U{width}"):
+                    yield str(s)
+        yield from self._extra
+
+    def __bool__(self):
+        return len(self) > 0
+
+    def __contains__(self, jid):
+        if jid in self._extra:
+            return True
+        return self._raw is not None and self._raw.dtype.type(jid) in self._raw
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return list(self)[i]
+        n_raw = self._raw.size if self._raw is not None else 0
+        if i < 0:
+            i += len(self)
+        if i < n_raw:
+            return self._raw[i].decode()
+        return self._extra[i - n_raw]
+
+    def append(self, jid):
+        self._extra.append(jid)
+
+    def extend(self, jids):
+        self._extra.extend(jids)
+
+    def __eq__(self, other):
+        return list(self) == list(other)
+
+    def __repr__(self):
+        return f"LazyJobIds(n={len(self)})"
+
+
+class ChainedJobIds:
+    """Concatenation of id sequences that never materialises its parts on
+    extend (one possibly lazy sequence per pool round; a plain list.extend
+    would decode every id)."""
+
+    __slots__ = ("_parts",)
+
+    def __init__(self):
+        self._parts: list = []
+
+    def extend(self, part) -> None:
+        self._parts.append(part)
+
+    def append(self, jid) -> None:
+        self._parts.append([jid])
+
+    def __len__(self):
+        return sum(len(p) for p in self._parts)
+
+    def __iter__(self):
+        for p in self._parts:
+            yield from p
+
+    def __bool__(self):
+        return any(len(p) for p in self._parts)
+
+    def __eq__(self, other):
+        return list(self) == list(other)
+
+    def __repr__(self):
+        return f"ChainedJobIds(n={len(self)})"
 
 
 def pc_queue_caps(config, pc_names, factory, total_pool) -> np.ndarray:
@@ -1147,6 +1271,7 @@ def build_problem(
             for tag, ris in running_gang_groups.items()
             if len(ris) > 1
         },
+        type_names=[nt.hw_type for nt in ntidx.types],
     )
     return problem, ctx
 
@@ -1221,6 +1346,8 @@ def _fetch_compact(ctx: HostContext, dispatched):
     """Pull the decode inputs in one device-to-host copy and parse them."""
     from armada_tpu_torch.models.xfer import TRANSFER_STATS
 
+    ctx.last_compact_np = None
+
     buf_dev, fcap, ecap = dispatched
     buf = buf_dev.cpu().numpy()
     TRANSFER_STATS.count_down(buf.nbytes)
@@ -1229,8 +1356,12 @@ def _fetch_compact(ctx: HostContext, dispatched):
 
 def _parse_compact(buf: np.ndarray, ctx: HostContext, fcap: int, ecap: int):
     """Decode-input tuple from a fetched compact buffer, or None when a cap
-    overflowed (the caller then pulls the full arrays)."""
+    overflowed (the caller then pulls the full arrays).  Stashes the exact
+    bytes on the ctx (HostContext.last_compact_np) for the verification
+    fingerprint cross-check (models/verify.py)."""
     from armada_tpu_torch.models.fair_scheduler import COMPACT_HEADER
+
+    ctx.last_compact_np = buf
 
     (
         n_slots, iterations, termination, _sched_count, spot_bits, n_failed,
@@ -1335,16 +1466,36 @@ def decode_result(result, ctx: HostContext, _fetched=_UNFETCHED) -> RoundOutcome
     preempted = [ctx.run_job_id(int(ri)) for ri in pre_idx]
     rescheduled = [ctx.run_job_id(int(ri)) for ri in res_idx]
 
-    failed = []
-    for gi in g2:
-        failed.extend(ctx.members_of(int(gi)))
+    if ctx.gang_members is None:
+        # Vectorized path: a round can retire whole unfeasible key classes
+        # (g_state=2 en masse); per-id Python here costs seconds at 1M
+        # gangs, so decode stays lazy until someone iterates.
+        ids = ctx.gang_ids_vec[g2]
+        extra = [
+            m
+            for gi, members in ctx.gang_members_over.items()
+            if state_of(gi) == 2
+            for m in members
+        ]
+        failed = LazyJobIds(ids[ids != b""], extra)
+    else:
+        failed = []
+        for gi in g2:
+            failed.extend(ctx.members_of(int(gi)))
 
     # Cross-class gang atomicity: a declared gang split into per-key sub-gangs
     # unwinds its placed siblings when another sub-gang failed; the caller
     # re-runs the round without the doomed gangs.
     unwound = set()
     groups: dict = {}
-    for gi in range(ctx.num_real_gangs):
+    # Split-gang tags live only on multi-member units under the vectorized
+    # representation; the list path may tag any gang.
+    tagged = (
+        ctx.gang_members_over.keys()
+        if ctx.gang_members is None
+        else range(ctx.num_real_gangs)
+    )
+    for gi in tagged:
         tag = ctx.gang_group[gi]
         if tag:
             groups.setdefault(tag, []).append(gi)

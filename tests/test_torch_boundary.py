@@ -141,3 +141,22 @@ def test_kernels_match_plain_on_the_card():
     problem, meta = synthetic_problem(num_nodes=300, num_gangs=2000, num_queues=16,
                                       num_runs=100, max_gang_cardinality=8, seed=3)
     chip_smoke.check_round("synthetic", problem, meta, dev)
+
+
+@pytest.mark.cuda
+def test_incremental_kernels_match_plain_on_the_card():
+    """Run on a machine with a card:
+    `python -m pytest --noconftest -m cuda tests/test_torch_boundary.py`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke
+    from armada_tpu_torch.models import run_scheduling_round
+    from armada_tpu_torch.models.synthetic import synthetic_world
+
+    dev = torch.device("cuda", 0)
+    world = synthetic_world(**chip_smoke.SMALL_WORLD)
+    config, nodes, queues, specs, running, _ = world
+    out = run_scheduling_round(config, pool="default", nodes=nodes, queues=queues,
+                               queued_jobs=specs, running=running, device=dev)
+    report = chip_smoke.incremental_path(dev, dict(world=world), out)
+    assert report["checks"]["kh_scatter"] >= chip_smoke.STEADY_CYCLES
