@@ -328,19 +328,19 @@ extern "C" int armada_explain(const ExplainArgs* args, cudaStream_t stream) {
     int* offK = a.offsets;
     int* offG = a.offsets + nbK;
     const U8Flag keys{a.key_has, a.K, 1}, failed{a.cfailed, a.G, 1};
-    ARMADA_LAUNCH(scan_count_kernel, nbK, SCAN_BLOCK, stream)(keys, offK);
+    ARMADA_LAUNCH(scan_count_kernel, nbK, SCAN_BLOCK, stream)(keys, offK, 0);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(scan_count_kernel, nbG, SCAN_BLOCK, stream)(failed, offG);
+    ARMADA_LAUNCH(scan_count_kernel, nbG, SCAN_BLOCK, stream)(failed, offG, 0);
     ARMADA_CHECK();
     ARMADA_LAUNCH(scan_offsets_kernel, 1, 32, stream)(offK, nbK, a.totals);
     ARMADA_CHECK();
     ARMADA_LAUNCH(scan_offsets_kernel, 1, 32, stream)(offG, nbG, a.totals + 1);
     ARMADA_CHECK();
     ARMADA_LAUNCH(scan_index_kernel, nbK, SCAN_BLOCK, stream)(keys, offK, a.out + l.kid,
-                                                             a.kcap);
+                                                             a.kcap, 0, 0);
     ARMADA_CHECK();
     ARMADA_LAUNCH(scan_index_kernel, nbG, SCAN_BLOCK, stream)(failed, offG, a.out + l.fid,
-                                                             a.fcap);
+                                                             a.fcap, 0, 0);
     ARMADA_CHECK();
     const int lists = a.kcap > a.fcap ? a.kcap : a.fcap;
     if (lists > 0) {

@@ -9,7 +9,9 @@
 // iteration -- far below a microsecond of memory or compute; the launch and
 // the <= 10 sequential iterations with their block barriers are what it costs.
 // The simple design: one block, threads stride over Q, the iterations run
-// inside the block.
+// inside the block.  A stacked round (K-D) launches one block per pool lane
+// (grid (1, P)); lane l reads and writes rows l of [P, Q] inputs, outputs
+// and scratch, so the lanes never meet.
 //
 // Reduction order.  Every [Q] sum feeds the eviction gate, so it is taken in
 // XLA:CPU's order, as the plain version takes it: lengths <= 32 left to right
@@ -110,6 +112,14 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) fair_shares_kernel(
     __shared__ float win[FS_MAX_WINDOWS];
     __shared__ float res;
     const int tid = threadIdx.x;
+    const long long lane = blockIdx.y;
+    w += lane * Q;
+    cds += lane * Q;
+    fs += lane * Q;
+    dcafs += lane * Q;
+    ucafs += lane * Q;
+    scratch += lane * 2 * Q;
+    achieved += lane * Q;
     float* tmp = scratch;
     float* spare = scratch + Q;
 
@@ -156,12 +166,13 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) fair_shares_kernel(
     }
 }
 
+// lanes: the number of [Q] rows (1 for a solo round, P for a stacked one).
 extern "C" int armada_fair_shares(const float* w, const float* cds, float* fs, float* dcafs,
                                   float* ucafs, float* scratch, u8* achieved, int Q,
-                                  int max_iter, cudaStream_t stream) {
-    if (Q <= 0 || Q > 32 * FS_MAX_WINDOWS) return -1;
-    ARMADA_LAUNCH(fair_shares_kernel, 1, ARMADA_BLOCK, stream)(w, cds, fs, dcafs, ucafs,
-                                                               scratch, achieved, Q, max_iter);
+                                  int max_iter, int lanes, cudaStream_t stream) {
+    if (Q <= 0 || Q > 32 * FS_MAX_WINDOWS || lanes <= 0 || lanes > 65535) return -1;
+    ARMADA_LAUNCH(fair_shares_kernel, dim3(1, lanes), ARMADA_BLOCK, stream)(
+        w, cds, fs, dcafs, ucafs, scratch, achieved, Q, max_iter);
     ARMADA_CHECK();
     return 0;
 }

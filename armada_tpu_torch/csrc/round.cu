@@ -23,6 +23,21 @@
 // memory and alloc[P1, N, R] in global memory (it fits in L2 at the
 // reference scale); phase B's fixed point is a second single-block kernel.
 // No host synchronisation between the launches.
+//
+// K-D, the stacked round: P pools whose problems match in every shape run as
+// ONE sequence of launches.  Replaces `_schedule_round_stacked_jit`
+// (models/fair_scheduler.py:1788, jax.vmap of the solo round).  Every kernel
+// takes the lane from blockIdx.y: the grid-wide kernels launch with grid
+// (x, P), and the two persistent kernels with grid (1, P), one block per
+// pool lane on its own SM.  Lane l's arrays start l x (per-lane element
+// count) past lane 0's (`lane_of`), so one RoundArgs by value serves every
+// lane and nothing per lane is uploaded.  The lanes never meet and the
+// block's arithmetic is the solo round's, so each lane equals the solo
+// round on its slice bit for bit (vmap runs the lanes in lockstep and masks
+// finished ones; that gives the same per-lane result).  Past 132 lanes the
+// persistent blocks queue for a free SM: the round's device time grows by
+// the longest lane per extra wave, the results do not change.  A solo
+// round is the stacked one at P = 1.
 
 #include "common.cuh"
 
@@ -107,11 +122,94 @@ struct RoundArgs {
     float* cost;               // [RJ] phase B scratch
     int* scal;                 // [8]: n_slots, iterations, termination,
                                //      sched_count, done, kernel_iters
-    // shapes and statics
-    int N, R, G, Q, RJ, K, T, C, P1, S, W, max_iter;
+    // shapes and statics; BR = ban rows, P = lanes
+    int N, R, G, Q, RJ, K, T, C, P1, S, W, max_iter, BR, P;
 };
 
+// scal is [8, P]: slot k of lane l at scal[k * P + l] (a contiguous [P]
+// row per slot for the stacked result).
 enum { SC_NSLOTS = 0, SC_ITERS = 1, SC_TERM = 2, SC_SCHED = 3, SC_DONE = 4, SC_KITERS = 5 };
+
+// Lane l of a stacked round: every lane has lane 0's shapes, so each array
+// of lane l starts l x (its per-lane element count) past lane 0's.
+static __device__ __forceinline__ RoundArgs lane_of(RoundArgs a, long long l) {
+    const long long N = a.N, R = a.R, G = a.G, Q = a.Q, RJ = a.RJ;
+    const long long NR = N * R, P1NR = (long long)a.P1 * N * R;
+    a.node_total += l * NR;
+    a.node_type += l * N;
+    a.node_ok += l * N;
+    a.run_req += l * RJ * R;
+    a.run_node += l * RJ;
+    a.run_level += l * RJ;
+    a.run_queue += l * RJ;
+    a.run_pc += l * RJ;
+    a.run_preemptible += l * RJ;
+    a.run_gang += l * RJ;
+    a.run_valid += l * RJ;
+    a.g_req += l * G * R;
+    a.g_card += l * G;
+    a.g_level += l * G;
+    a.g_key += l * G;
+    a.g_pc += l * G;
+    a.g_run += l * G;
+    a.g_valid += l * G;
+    a.g_absent += l * G;
+    a.g_price += l * G;
+    a.g_spot_price += l * G;
+    a.gq_gang += l * G;
+    a.q_start += l * Q;
+    a.q_len += l * Q;
+    a.q_weight += l * Q;
+    a.q_penalty += l * Q * R;
+    a.compat += l * (long long)a.K * a.T;
+    a.total_pool += l * R;
+    a.drf_mult += l * R;
+    a.inv_scale += l * R;
+    a.round_cap += l * R;
+    a.pc_queue_cap += l * (long long)a.C * R;
+    a.protected_fraction += l;
+    a.global_burst += l;
+    a.perq_burst += l * Q;
+    a.node_axes += l * R;
+    a.float_total += l * R;
+    a.market += l;
+    a.spot_cutoff += l;
+    a.ban_mask += l * (long long)a.BR * N;
+    a.g_ban_row += l * G;
+    a.fair_share += l * Q;
+    a.dcafs += l * Q;
+    a.used += l * P1NR;
+    a.alloc += l * P1NR;
+    a.q_alloc += l * Q * R;
+    a.q_alloc_pc += l * Q * a.C * R;
+    a.float_used += l * R;
+    a.sched_res += l * R;
+    a.spot_res += l * R;
+    a.spot_price += l;
+    a.run_evicted += l * RJ;
+    a.run_rescheduled += l * RJ;
+    a.pending += l * RJ;
+    a.g_state += l * G;
+    a.q_killed += l * Q;
+    a.q_sched += l * Q;
+    a.q_head += l * Q;
+    a.live_q += l * Q;
+    a.key_bad += l * a.K;
+    a.slot_gang += l * a.S;
+    a.slot_nodes += l * (long long)a.S * a.W;
+    a.slot_counts += l * (long long)a.S * a.W;
+    a.cap_c += l * N;
+    a.cap_l += l * N;
+    a.score_c += l * N;
+    a.score_l += l * N;
+    a.nmin += l * N;
+    a.rmin += l * N;
+    a.cost += l * RJ;
+    a.scal += l;
+    return a;
+}
+
+#define LANE_ARGS const RoundArgs a = lane_of(a0, blockIdx.y)
 
 #define GRID_STRIDE(i, n) \
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < (n); \
@@ -121,7 +219,8 @@ enum { SC_NSLOTS = 0, SC_ITERS = 1, SC_TERM = 2, SC_SCHED = 3, SC_DONE = 4, SC_K
 
 // used[level, node] += run_req * node_axes for valid runs; q_alloc and
 // q_alloc_pc += run_req; float_used += run_req * (1 - node_axes).
-__global__ void prologue_scatter_kernel(RoundArgs a) {
+__global__ void prologue_scatter_kernel(RoundArgs a0) {
+    LANE_ARGS;
     const int R = a.R;
     GRID_STRIDE(j, a.RJ) {
         if (!a.run_valid[j]) continue;
@@ -138,7 +237,8 @@ __global__ void prologue_scatter_kernel(RoundArgs a) {
 }
 
 // alloc[p] = total - sum_{p' >= p} used[p'] (suffix sum over the ladder).
-__global__ void prologue_alloc_kernel(RoundArgs a) {
+__global__ void prologue_alloc_kernel(RoundArgs a0) {
+    LANE_ARGS;
     const long long NR = (long long)a.N * a.R;
     GRID_STRIDE(i, NR) {
         float s = 0.0f;
@@ -150,7 +250,8 @@ __global__ void prologue_alloc_kernel(RoundArgs a) {
 }
 
 // The fair-share eviction gate and the move of evicted runs' usage to level 0.
-__global__ void evict_kernel(RoundArgs a) {
+__global__ void evict_kernel(RoundArgs a0) {
+    LANE_ARGS;
     const int R = a.R;
     GRID_STRIDE(j, a.RJ) {
         const int q = a.run_queue[j];
@@ -167,7 +268,10 @@ __global__ void evict_kernel(RoundArgs a) {
 
 // Runs flagged in `move` give their usage back at levels 1..run_level and
 // leave their queue's allocation (the marker at level 0 stays).
-__global__ void move_to_evicted_kernel(RoundArgs a, const u8* move, int with_pc) {
+// use_pending: 0 moves the runs flagged in run_evicted, 1 those in pending.
+__global__ void move_to_evicted_kernel(RoundArgs a0, int use_pending, int with_pc) {
+    LANE_ARGS;
+    const u8* move = use_pending ? a.pending : a.run_evicted;
     const int R = a.R;
     GRID_STRIDE(j, a.RJ) {
         if (!move[j]) continue;
@@ -184,7 +288,8 @@ __global__ void move_to_evicted_kernel(RoundArgs a, const u8* move, int with_pc)
     }
 }
 
-__global__ void gstate_init_kernel(RoundArgs a) {
+__global__ void gstate_init_kernel(RoundArgs a0) {
+    LANE_ARGS;
     GRID_STRIDE(g, a.G) {
         const int run = a.g_run[g];
         const bool active = run >= 0 ? a.run_evicted[run] != 0 : false;
@@ -217,10 +322,13 @@ __device__ __forceinline__ int gq_at(const RoundArgs& a, long long idx) {
     return a.gq_gang[idx];
 }
 
-// nodes_w / counts_w: i32[W] rows holding the (node, count) spread of the
-// gang being placed; node N marks an unused entry.
-__global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a, int* nodes_w,
+// nodes_w / counts_w: i32[P, W] rows holding the (node, count) spread of
+// the gang being placed; node N marks an unused entry.
+__global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, int* nodes_w,
                                                                   int* counts_w) {
+    LANE_ARGS;
+    nodes_w += (long long)blockIdx.y * a.W;
+    counts_w += (long long)blockIdx.y * a.W;
     __shared__ LoopShared sh;
     __shared__ ArgMin red[ARMADA_WARPS + 1];
     __shared__ long long redl[ARMADA_WARPS + 1];
@@ -539,17 +647,18 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a, i
     if (tid == 0) {
         int term = sh.termination;
         if (!sh.done && sh.iterations >= a.max_iter) term = 3;
-        a.scal[SC_NSLOTS] = sh.cursor;
-        a.scal[SC_ITERS] = sh.iterations;
-        a.scal[SC_TERM] = term;
-        a.scal[SC_SCHED] = sh.sched_count;
-        a.scal[SC_DONE] = sh.done;
-        a.scal[SC_KITERS] = sh.iterations;
+        a.scal[SC_NSLOTS * a.P] = sh.cursor;
+        a.scal[SC_ITERS * a.P] = sh.iterations;
+        a.scal[SC_TERM * a.P] = term;
+        a.scal[SC_SCHED * a.P] = sh.sched_count;
+        a.scal[SC_DONE * a.P] = sh.done;
+        a.scal[SC_KITERS * a.P] = sh.iterations;
     }
 }
 
 // Gangs whose key was registered unfeasible but which no cursor reached.
-__global__ void key_sweep_kernel(RoundArgs a) {
+__global__ void key_sweep_kernel(RoundArgs a0) {
+    LANE_ARGS;
     GRID_STRIDE(g, a.G) {
         const int key = a.g_key[g];
         if (a.g_state[g] == 0 && a.g_valid[g] && key >= 0 && a.key_bad[key]) a.g_state[g] = 2;
@@ -560,7 +669,8 @@ __global__ void key_sweep_kernel(RoundArgs a) {
 
 // Oversubscription eviction: runs holding a slot on a node whose allocatable
 // is negative at their (real) level.
-__global__ void over_evict_kernel(RoundArgs a) {
+__global__ void over_evict_kernel(RoundArgs a0) {
+    LANE_ARGS;
     const int R = a.R;
     GRID_STRIDE(j, a.RJ) {
         const int lvl = a.run_level[j], node = a.run_node[j];
@@ -574,7 +684,8 @@ __global__ void over_evict_kernel(RoundArgs a) {
     }
 }
 
-__global__ void over_apply_kernel(RoundArgs a) {
+__global__ void over_apply_kernel(RoundArgs a0) {
+    LANE_ARGS;
     GRID_STRIDE(j, a.RJ) {
         if (a.pending[j]) {
             a.run_evicted[j] = 1;
@@ -586,7 +697,8 @@ __global__ void over_apply_kernel(RoundArgs a) {
 // The pinned re-schedule fixed point: per iteration each node admits its
 // cheapest-queue pending evictee that fits (ties to the lowest run index).
 // One block; at most max_fix iterations, ending when nothing was admitted.
-__global__ void __launch_bounds__(ARMADA_BLOCK) fixpoint_kernel(RoundArgs a, int max_fix) {
+__global__ void __launch_bounds__(ARMADA_BLOCK) fixpoint_kernel(RoundArgs a0, int max_fix) {
+    LANE_ARGS;
     const int tid = threadIdx.x;
     const int R = a.R, N = a.N;
     bool progress = false;
@@ -647,7 +759,8 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) fixpoint_kernel(RoundArgs a, int
 }
 
 // Drop the evicted markers of runs that did not come back.
-__global__ void unbind_kernel(RoundArgs a) {
+__global__ void unbind_kernel(RoundArgs a0) {
+    LANE_ARGS;
     const int R = a.R;
     GRID_STRIDE(j, a.RJ) {
         if (!(a.run_evicted[j] && !a.run_rescheduled[j])) continue;
@@ -657,51 +770,55 @@ __global__ void unbind_kernel(RoundArgs a) {
     }
 }
 
-static int grid_for(long long n) {
+// Grid of a grid-stride kernel over n elements of each of P lanes.
+static dim3 grid_for(long long n, int lanes) {
     long long b = (n + 255) / 256;
     if (b < 1) b = 1;
     if (b > 4096) b = 4096;
-    return (int)b;
+    return dim3((unsigned)b, (unsigned)lanes);
 }
+
+static bool args_ok(const RoundArgs& a) { return a.R <= MAX_R && a.P >= 1 && a.P <= 65535; }
 
 // Running usage into used/alloc/q_alloc/q_alloc_pc/float_used.  The caller
 // zeroes used, q_alloc, q_alloc_pc and float_used first.
 extern "C" int armada_round_prologue(const RoundArgs* args, cudaStream_t stream) {
     RoundArgs a = *args;
-    if (a.R > MAX_R) return -1;
-    ARMADA_LAUNCH(prologue_scatter_kernel, grid_for(a.RJ), 256, stream)(a);
+    if (!args_ok(a)) return -1;
+    ARMADA_LAUNCH(prologue_scatter_kernel, grid_for(a.RJ, a.P), 256, stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(prologue_alloc_kernel, grid_for((long long)a.N * a.R), 256, stream)(a);
+    ARMADA_LAUNCH(prologue_alloc_kernel, grid_for((long long)a.N * a.R, a.P), 256, stream)(a);
     ARMADA_CHECK();
     return 0;
 }
 
 // Everything after the fair shares: the eviction gate and move, gang
 // activation, the placement loop, the key sweep, phase B and the unbind.
-// nodes_w / counts_w: i32[W] scratch rows for the spread being built.
+// nodes_w / counts_w: i32[P, W] scratch rows for the spreads being built.
 extern "C" int armada_round_main(const RoundArgs* args, int* nodes_w, int* counts_w,
                                  int max_fix, cudaStream_t stream) {
     RoundArgs a = *args;
-    if (a.R > MAX_R) return -1;
-    ARMADA_LAUNCH(evict_kernel, grid_for(a.RJ), 256, stream)(a);
+    if (!args_ok(a)) return -1;
+    const dim3 one(1, a.P);
+    ARMADA_LAUNCH(evict_kernel, grid_for(a.RJ, a.P), 256, stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(move_to_evicted_kernel, grid_for(a.RJ), 256, stream)(a, a.run_evicted, 1);
+    ARMADA_LAUNCH(move_to_evicted_kernel, grid_for(a.RJ, a.P), 256, stream)(a, 0, 1);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(gstate_init_kernel, grid_for(a.G), 256, stream)(a);
+    ARMADA_LAUNCH(gstate_init_kernel, grid_for(a.G, a.P), 256, stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(place_loop_kernel, 1, ARMADA_BLOCK, stream)(a, nodes_w, counts_w);
+    ARMADA_LAUNCH(place_loop_kernel, one, ARMADA_BLOCK, stream)(a, nodes_w, counts_w);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(key_sweep_kernel, grid_for(a.G), 256, stream)(a);
+    ARMADA_LAUNCH(key_sweep_kernel, grid_for(a.G, a.P), 256, stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(over_evict_kernel, grid_for(a.RJ), 256, stream)(a);
+    ARMADA_LAUNCH(over_evict_kernel, grid_for(a.RJ, a.P), 256, stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(move_to_evicted_kernel, grid_for(a.RJ), 256, stream)(a, a.pending, 0);
+    ARMADA_LAUNCH(move_to_evicted_kernel, grid_for(a.RJ, a.P), 256, stream)(a, 1, 0);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(over_apply_kernel, grid_for(a.RJ), 256, stream)(a);
+    ARMADA_LAUNCH(over_apply_kernel, grid_for(a.RJ, a.P), 256, stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(fixpoint_kernel, 1, ARMADA_BLOCK, stream)(a, max_fix);
+    ARMADA_LAUNCH(fixpoint_kernel, one, ARMADA_BLOCK, stream)(a, max_fix);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(unbind_kernel, grid_for(a.RJ), 256, stream)(a);
+    ARMADA_LAUNCH(unbind_kernel, grid_for(a.RJ, a.P), 256, stream)(a);
     ARMADA_CHECK();
     return 0;
 }

@@ -4,7 +4,10 @@
 // torch.nonzero.  The kernels take the flag as a functor `bool f(long long
 // i)` (false past the end), so K-C's packed decode (csrc/compact.cu), K-H's
 // gq splice (csrc/slab.cu) and K-J's key and failed-gang lists
-// (csrc/explain.cu) share one implementation.
+// (csrc/explain.cu) share one implementation.  A lane axis (K-F, the stacked
+// decode) rides blockIdx.y: the flag functor reads its lane from blockIdx.y,
+// and the kernels offset their count, offset and output arrays by the lane
+// strides they are given (0 for a single lane).
 #pragma once
 
 #include "common.cuh"
@@ -26,9 +29,11 @@ struct U8Flag {
     }
 };
 
-// counts[b] = number of flagged i in block b.
+// counts[b] = number of flagged i in block b (of lane blockIdx.y).
 template <class Flag>
-static __global__ void __launch_bounds__(SCAN_BLOCK) scan_count_kernel(Flag flag, int* counts) {
+static __global__ void __launch_bounds__(SCAN_BLOCK)
+    scan_count_kernel(Flag flag, int* counts, long long lane_stride) {
+    counts += blockIdx.y * lane_stride;
     const long long i = (long long)blockIdx.x * SCAN_BLOCK + threadIdx.x;
     const int c = __syncthreads_count(flag(i) ? 1 : 0);
     if (threadIdx.x == 0) counts[blockIdx.x] = c;
@@ -68,8 +73,11 @@ static __device__ __forceinline__ int block_rank(bool f, int* warp_tot) {
 // list of jnp.nonzero(size=cap); the caller fills dst with -1 first).
 template <class Flag>
 static __global__ void __launch_bounds__(SCAN_BLOCK)
-    scan_index_kernel(Flag flag, const int* offsets, int* dst, int cap) {
+    scan_index_kernel(Flag flag, const int* offsets, int* dst, int cap, long long off_stride,
+                      long long dst_stride) {
     __shared__ int warp_tot[SCAN_BLOCK / 32];
+    offsets += blockIdx.y * off_stride;
+    dst += blockIdx.y * dst_stride;
     const long long i = (long long)blockIdx.x * SCAN_BLOCK + threadIdx.x;
     const bool f = flag(i);
     const int rank = offsets[blockIdx.x] + block_rank(f, warp_tot);

@@ -168,9 +168,9 @@ extern "C" int armada_slab_splice(const SpliceArgs* args, cudaStream_t stream) {
     int* kept_off = a.counts;
     int* unocc_off = a.counts + nb;
     const U8Flag kept{a.removed, a.G, 0}, unocc{a.occupied, a.G, 0};
-    ARMADA_LAUNCH(scan_count_kernel, nb, SCAN_BLOCK, stream)(kept, kept_off);
+    ARMADA_LAUNCH(scan_count_kernel, nb, SCAN_BLOCK, stream)(kept, kept_off, 0);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(scan_count_kernel, nb, SCAN_BLOCK, stream)(unocc, unocc_off);
+    ARMADA_LAUNCH(scan_count_kernel, nb, SCAN_BLOCK, stream)(unocc, unocc_off, 0);
     ARMADA_CHECK();
     ARMADA_LAUNCH(scan_offsets_kernel, 1, 32, stream)(kept_off, nb, nullptr);
     ARMADA_CHECK();

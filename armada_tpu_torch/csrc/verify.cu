@@ -19,6 +19,13 @@
 // of |difference| are order-free (atomicMax on the bits of non-negative
 // floats).
 //
+// The stacked form (K-I stacked) replaces `_kernel_stacked` (verify.py:496,
+// jax.vmap of the kernel over a stacked round's P lanes): every kernel takes
+// its lane from blockIdx.y (grid (x, P)); lane l's inputs, scratch and
+// i32[16] output row start l x (per-lane length) past lane 0's, its real
+// gang count comes from an i32 [P] table on the card, and its fingerprint
+// folds over row l of the stacked [P, L] compact buffer.
+//
 // Bound on this card: every input read once -- the problem's run and gang
 // rows, the slots, the allocatable rows at the clean level, the compact
 // buffer (~45 MB at the reference scale, G ~ 1.1M) -- so ~15 us of HBM
@@ -71,8 +78,46 @@ struct VerifyArgs {
     int* occ;                 // [G] scratch
     unsigned int* acc;        // [A_LEN] scratch
     int* out;                 // [16]
-    int N, R, RJ, G, Q, S, W, L, real_g;
+    const int* real_lanes;    // [P] real gang counts of a stacked round, or null: real_g
+    long long alloc0_stride;  // elements between two lanes' alloc0 (P1 * N * R)
+    int N, R, RJ, G, Q, S, W, L, real_g, lanes;
 };
+
+// Lane l of a stacked verification (every lane has lane 0's shapes).
+static __device__ __forceinline__ VerifyArgs vlane_of(VerifyArgs a, long long l) {
+    const long long N = a.N, R = a.R, RJ = a.RJ, G = a.G, Q = a.Q, SW = (long long)a.S * a.W;
+    a.node_total += l * N * R;
+    a.node_ok += l * N;
+    a.node_axes += l * R;
+    a.run_req += l * RJ * R;
+    a.run_node += l * RJ;
+    a.run_queue += l * RJ;
+    a.run_valid += l * RJ;
+    a.g_req += l * G * R;
+    a.g_card += l * G;
+    a.g_queue += l * G;
+    a.g_run += l * G;
+    a.g_state += l * G;
+    a.slot_gang += l * a.S;
+    a.slot_nodes += l * SW;
+    a.slot_counts += l * SW;
+    a.n_slots += l;
+    a.run_evicted += l * RJ;
+    a.run_rescheduled += l * RJ;
+    a.alloc0 += l * a.alloc0_stride;
+    a.q_alloc += l * Q * R;
+    a.sched_count += l;
+    a.compact += l * a.L;
+    a.used += l * N * R;
+    a.expq += l * Q * R;
+    a.occ += l * G;
+    a.acc += l * A_LEN;
+    a.out += l * 16;
+    if (a.real_lanes) a.real_g = a.real_lanes[l];
+    return a;
+}
+
+#define VLANE const VerifyArgs a = vlane_of(a0, blockIdx.y)
 
 static __device__ __forceinline__ void add_f(float* p, float v) {
     if (v != 0.0f) atomicAdd(p, v);
@@ -89,7 +134,8 @@ static __device__ __forceinline__ float jmax(float x, float y) {
     return x > y ? x : y;
 }
 
-__global__ void verify_runs_kernel(VerifyArgs a) {
+__global__ void verify_runs_kernel(VerifyArgs a0) {
+    VLANE;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= a.RJ) return;
     const bool valid = a.run_valid[i] != 0, ev = a.run_evicted[i] != 0;
@@ -107,7 +153,8 @@ __global__ void verify_runs_kernel(VerifyArgs a) {
     }
 }
 
-__global__ void verify_slots_kernel(VerifyArgs a) {
+__global__ void verify_slots_kernel(VerifyArgs a0) {
+    VLANE;
     const int s = blockIdx.x * blockDim.x + threadIdx.x;
     if (s >= a.S) return;
     const int ns = *a.n_slots;
@@ -145,7 +192,8 @@ __global__ void verify_slots_kernel(VerifyArgs a) {
     }
 }
 
-__global__ void verify_gangs_kernel(VerifyArgs a) {
+__global__ void verify_gangs_kernel(VerifyArgs a0) {
+    VLANE;
     const int g = blockIdx.x * blockDim.x + threadIdx.x;
     if (g >= a.G) return;
     const bool pq = g < a.real_g && a.g_state[g] == 1 && a.g_run[g] < 0;
@@ -160,14 +208,16 @@ __global__ void verify_gangs_kernel(VerifyArgs a) {
         add_f(&a.expq[q * a.R + r], __fmul_rn(a.g_req[(long long)g * a.R + r], wgt));
 }
 
-__global__ void verify_occ_kernel(VerifyArgs a) {
+__global__ void verify_occ_kernel(VerifyArgs a0) {
+    VLANE;
     const int g = blockIdx.x * blockDim.x + threadIdx.x;
     if (g >= a.G) return;
     const int pq = (g < a.real_g && a.g_state[g] == 1 && a.g_run[g] < 0) ? 1 : 0;
     if (a.occ[g] != pq) flag(a, 2);
 }
 
-__global__ void verify_nodes_kernel(VerifyArgs a) {
+__global__ void verify_nodes_kernel(VerifyArgs a0) {
+    VLANE;
     const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= (long long)a.N * a.R) return;
     const float total = a.node_total[e];
@@ -176,7 +226,8 @@ __global__ void verify_nodes_kernel(VerifyArgs a) {
     if (d > __fmaf_rn(1e-3f, total, 0.5f)) flag(a, 5);
 }
 
-__global__ void verify_queues_kernel(VerifyArgs a) {
+__global__ void verify_queues_kernel(VerifyArgs a0) {
+    VLANE;
     const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= (long long)a.Q * a.R) return;
     const float x = a.q_alloc[e], y = a.expq[e];
@@ -185,7 +236,8 @@ __global__ void verify_queues_kernel(VerifyArgs a) {
     if (d > __fmaf_rn(1e-3f, jmax(fabsf(y), fabsf(x)), 1.0f)) flag(a, 6);
 }
 
-__global__ void verify_fingerprint_kernel(VerifyArgs a) {
+__global__ void verify_fingerprint_kernel(VerifyArgs a0) {
+    VLANE;
     unsigned int x = 0, s = 0;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < a.L;
          i += (long long)gridDim.x * blockDim.x) {
@@ -202,7 +254,8 @@ __global__ void verify_fingerprint_kernel(VerifyArgs a) {
     }
 }
 
-__global__ void verify_final_kernel(VerifyArgs a) {
+__global__ void verify_final_kernel(VerifyArgs a0) {
+    VLANE;
     if (threadIdx.x != 0 || blockIdx.x != 0) return;
     const int ns = *a.n_slots;
     const int sched = *a.sched_count;
@@ -237,35 +290,40 @@ static inline int grid_of(long long n, int block) {
 extern "C" int armada_verify(const VerifyArgs* args, cudaStream_t stream) {
     const VerifyArgs a = *args;
     if (a.N <= 0 || a.R <= 0 || a.G <= 0 || a.Q <= 0 || a.S <= 0 || a.W <= 0) return -1;
-    cudaMemsetAsync(a.used, 0, sizeof(float) * (size_t)a.N * a.R, stream);
+    if (a.lanes < 1 || a.lanes > 65535) return -1;
+    const int P = a.lanes;
+    const size_t lanes = (size_t)P;
+    cudaMemsetAsync(a.used, 0, sizeof(float) * lanes * a.N * a.R, stream);
     ARMADA_CHECK();
-    cudaMemsetAsync(a.expq, 0, sizeof(float) * (size_t)a.Q * a.R, stream);
+    cudaMemsetAsync(a.expq, 0, sizeof(float) * lanes * a.Q * a.R, stream);
     ARMADA_CHECK();
-    cudaMemsetAsync(a.occ, 0, sizeof(int) * (size_t)a.G, stream);
+    cudaMemsetAsync(a.occ, 0, sizeof(int) * lanes * a.G, stream);
     ARMADA_CHECK();
-    cudaMemsetAsync(a.acc, 0, sizeof(unsigned int) * A_LEN, stream);
+    cudaMemsetAsync(a.acc, 0, sizeof(unsigned int) * lanes * A_LEN, stream);
     ARMADA_CHECK();
     if (a.RJ > 0) {
-        ARMADA_LAUNCH(verify_runs_kernel, grid_of(a.RJ, 256), 256, stream)(a);
+        ARMADA_LAUNCH(verify_runs_kernel, dim3(grid_of(a.RJ, 256), P), 256, stream)(a);
         ARMADA_CHECK();
     }
-    ARMADA_LAUNCH(verify_slots_kernel, grid_of(a.S, 256), 256, stream)(a);
+    ARMADA_LAUNCH(verify_slots_kernel, dim3(grid_of(a.S, 256), P), 256, stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(verify_gangs_kernel, grid_of(a.G, 256), 256, stream)(a);
+    ARMADA_LAUNCH(verify_gangs_kernel, dim3(grid_of(a.G, 256), P), 256, stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(verify_occ_kernel, grid_of(a.G, 256), 256, stream)(a);
+    ARMADA_LAUNCH(verify_occ_kernel, dim3(grid_of(a.G, 256), P), 256, stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(verify_nodes_kernel, grid_of((long long)a.N * a.R, 256), 256, stream)(a);
+    ARMADA_LAUNCH(verify_nodes_kernel, dim3(grid_of((long long)a.N * a.R, 256), P), 256,
+                  stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(verify_queues_kernel, grid_of((long long)a.Q * a.R, 256), 256, stream)(a);
+    ARMADA_LAUNCH(verify_queues_kernel, dim3(grid_of((long long)a.Q * a.R, 256), P), 256,
+                  stream)(a);
     ARMADA_CHECK();
     if (a.L > 0) {
         int grid = grid_of(a.L, 256);
         if (grid > 1024) grid = 1024;
-        ARMADA_LAUNCH(verify_fingerprint_kernel, grid, 256, stream)(a);
+        ARMADA_LAUNCH(verify_fingerprint_kernel, dim3(grid, P), 256, stream)(a);
         ARMADA_CHECK();
     }
-    ARMADA_LAUNCH(verify_final_kernel, 1, 32, stream)(a);
+    ARMADA_LAUNCH(verify_final_kernel, dim3(1, P), 32, stream)(a);
     ARMADA_CHECK();
     return 0;
 }

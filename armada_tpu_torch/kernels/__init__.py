@@ -9,7 +9,10 @@ LAUNCHES counts kernel launches per kernel, incremented only where a wrapper
 launches its kernel, so a run can show that its path went through them.
 """
 
-LAUNCHES = {"fair_shares": 0, "round": 0, "compact": 0, "slab": 0, "verify": 0, "explain": 0}
+LAUNCHES = {
+    "fair_shares": 0, "round": 0, "compact": 0, "slab": 0, "verify": 0, "explain": 0,
+    "round_stacked": 0, "stack": 0, "compact_stacked": 0, "lane_slice": 0, "verify_stacked": 0,
+}
 
 
 def reset_launches() -> None:

@@ -22,7 +22,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("fair_shares.cu", "round.cu", "compact.cu", "slab.cu", "verify.cu", "explain.cu")
+SOURCES = ("fair_shares.cu", "round.cu", "compact.cu", "slab.cu", "verify.cu", "explain.cu",
+           "lanes.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -97,7 +98,7 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.armada_fair_shares.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.armada_fair_shares.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.armada_fair_shares.restype = ci
         lib.armada_round_prologue.argtypes = [vp, vp]
         lib.armada_round_prologue.restype = ci
@@ -119,9 +120,11 @@ def library() -> ctypes.CDLL:
         lib.armada_explain.restype = ci
         lib.armada_explain_len.argtypes = [vp]
         lib.armada_explain_len.restype = ctypes.c_longlong
+        lib.armada_lanes_copy.argtypes = [vp, ci, vp]
+        lib.armada_lanes_copy.restype = ci
         for name in ("armada_slab_args_size", "armada_slab_group_size",
                      "armada_splice_args_size", "armada_verify_args_size",
-                     "armada_explain_args_size"):
+                     "armada_explain_args_size", "armada_lanes_desc_size"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ci
         _LIB = lib

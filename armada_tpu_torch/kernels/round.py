@@ -1,10 +1,13 @@
-"""Wrapper of kernel K-B (csrc/round.cu): the scheduling round.
+"""Wrappers of kernels K-B and K-D (csrc/round.cu): the scheduling round,
+solo or stacked over P pool lanes.
 
 On the card the round is a sequence of launches on the current stream with
 no host synchronisation: the prologue scatter and suffix sum, the fair
 shares (kernel K-A), the eviction gate and move, gang activation, the
 persistent single-block placement loop, the key sweep, phase B and the
-unbind.  CPU problems run the plain version (models/fair_scheduler.py)."""
+unbind.  The stacked round (K-D) is the same sequence with a lane axis: one
+block per lane for the persistent kernels.  CPU problems run the plain
+versions (models/fair_scheduler.py)."""
 
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ _PTR_FIELDS = (
     "slot_gang", "slot_nodes", "slot_counts", "cap_c", "cap_l", "score_c", "score_l",
     "nmin", "rmin", "cost", "scal",
 )
-_INT_FIELDS = ("N", "R", "G", "Q", "RJ", "K", "T", "C", "P1", "S", "W", "max_iter")
+_INT_FIELDS = ("N", "R", "G", "Q", "RJ", "K", "T", "C", "P1", "S", "W", "max_iter", "BR",
+               "P")
 
 
 class RoundArgs(ctypes.Structure):
@@ -50,7 +54,7 @@ class RoundArgs(ctypes.Structure):
     ]
 
 
-def _check_problem(p) -> None:
+def _check_problem(p, lanes: int) -> None:
     for name in _F32:
         require_cuda(getattr(p, name), name, torch.float32)
     for name in _I32:
@@ -59,51 +63,85 @@ def _check_problem(p) -> None:
         require_cuda(getattr(p, name), name, torch.bool)
     dev = p.g_req.device
     for name in p._fields:
-        if getattr(p, name).device != dev:
-            raise ValueError(f"{name}: lies on {getattr(p, name).device}, not {dev}")
+        t = getattr(p, name)
+        if t.device != dev:
+            raise ValueError(f"{name}: lies on {t.device}, not {dev}")
+        if lanes and (t.dim() == 0 or int(t.shape[0]) != lanes):
+            raise ValueError(f"{name}: expected a leading axis of {lanes} lanes, got {tuple(t.shape)}")
 
 
 def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_iterations: int):
-    """Run the round on the problem's device: kernels for CUDA, the plain
-    version for the CPU."""
-    from armada_tpu_torch.models.fair_scheduler import RoundResult, schedule_round_plain
+    """K-B: run the round on the problem's device: kernels for CUDA, the
+    plain version for the CPU."""
+    from armada_tpu_torch.models.fair_scheduler import schedule_round_plain
 
     if not p.g_req.is_cuda:
         return schedule_round_plain(
             p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
             max_iterations=max_iterations,
         )
-    _check_problem(p)
+    return _launch(p, 0, num_levels, max_slots, slot_width, max_iterations)
+
+
+def schedule_round_stacked(p, *, num_levels: int, max_slots: int, slot_width: int,
+                           max_iterations: int):
+    """K-D: P pools' rounds as one launch sequence.  Every field of `p`
+    carries a leading lane axis of P; every field of the RoundResult does
+    too.  CPU problems run the plain version (a loop over the lanes)."""
+    from armada_tpu_torch.models.fair_scheduler import schedule_round_stacked_plain
+
+    if not p.g_req.is_cuda:
+        return schedule_round_stacked_plain(
+            p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
+            max_iterations=max_iterations,
+        )
+    return _launch(p, int(p.g_req.shape[0]), num_levels, max_slots, slot_width,
+                   max_iterations)
+
+
+def _launch(p, lanes: int, num_levels: int, max_slots: int, slot_width: int,
+            max_iterations: int):
+    """The launch sequence; `lanes` = 0 for a solo round (no lane axis),
+    else P."""
+    from armada_tpu_torch.models.fair_scheduler import RoundResult
+
+    _check_problem(p, lanes)
     from armada_tpu_torch.kernels.fair_shares import fair_shares
 
     dev = p.g_req.device
-    N, R = (int(x) for x in p.node_total.shape)
-    G = int(p.g_req.shape[0])
-    Q = int(p.q_weight.shape[0])
-    RJ = int(p.run_req.shape[0])
-    K, T = (int(x) for x in p.compat.shape)
-    C = int(p.pc_queue_cap.shape[0])
+    o = 1 if lanes else 0
+    lead = (lanes,) if lanes else ()
+    P = max(lanes, 1)
+    N, R = (int(x) for x in p.node_total.shape[o:])
+    G = int(p.g_req.shape[o])
+    Q = int(p.q_weight.shape[o])
+    RJ = int(p.run_req.shape[o])
+    K, T = (int(x) for x in p.compat.shape[o:])
+    C = int(p.pc_queue_cap.shape[o])
+    BR = int(p.ban_mask.shape[o])
     P1, S, W = int(num_levels), int(max_slots), int(slot_width)
     if R > MAX_RESOURCES:
         raise ValueError(f"round kernel: at most {MAX_RESOURCES} resources, got {R}")
-    if int(p.type_bias.shape[0]) > 1:
+    if int(p.type_bias.shape[o]) > 1:
         raise NotImplementedError("hetero type bias (TR > 1) is not ported yet")
     if min(N, G, Q, RJ, S, W) <= 0:
         raise ValueError("round kernel: every axis must be non-empty")
+    if P > 65535:
+        raise ValueError(f"round kernel: at most 65535 lanes, got {P}")
 
     def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros(lead + shape, dtype=dtype, device=dev)
 
     f32, i32, b = torch.float32, torch.int32, torch.bool
     st = dict(
         used=zeros((P1, N, R), f32),
-        alloc=torch.empty((P1, N, R), dtype=f32, device=dev),
+        alloc=torch.empty(lead + (P1, N, R), dtype=f32, device=dev),
         q_alloc=zeros((Q, R), f32),
         q_alloc_pc=zeros((Q, C, R), f32),
         float_used=zeros((R,), f32),
         sched_res=zeros((R,), f32),
         spot_res=zeros((R,), f32),
-        spot_price=zeros((1,), f32),
+        spot_price=torch.zeros((P,), dtype=f32, device=dev),
         run_evicted=zeros((RJ,), b),
         run_rescheduled=zeros((RJ,), b),
         pending=zeros((RJ,), b),
@@ -114,7 +152,7 @@ def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_i
         live_q=zeros((Q,), i32),
         key_bad=zeros((K,), b),
         slot_gang=zeros((S,), i32),
-        slot_nodes=torch.full((S, W), N, dtype=i32, device=dev),
+        slot_nodes=torch.full(lead + (S, W), N, dtype=i32, device=dev),
         slot_counts=zeros((S, W), i32),
         cap_c=zeros((N,), i32),
         cap_l=zeros((N,), i32),
@@ -123,10 +161,11 @@ def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_i
         nmin=zeros((N,), i32),
         rmin=zeros((N,), i32),
         cost=zeros((RJ,), f32),
-        scal=zeros((8,), i32),
+        # [8, P]: slot k of every lane is the contiguous row scal[k]
+        scal=torch.zeros((8, P), dtype=i32, device=dev),
     )
-    nodes_w = torch.full((W,), N, dtype=i32, device=dev)
-    counts_w = zeros((W,), i32)
+    nodes_w = torch.full((P, W), N, dtype=i32, device=dev)
+    counts_w = torch.zeros((P, W), dtype=i32, device=dev)
     lib = library()
     if ctypes.sizeof(RoundArgs) != lib.armada_round_args_size():
         raise RuntimeError("RoundArgs layout differs between Python and csrc/round.cu")
@@ -137,7 +176,8 @@ def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_i
             t = getattr(p, name)
         if t is not None:
             setattr(args, name, t.data_ptr())
-    for name, v in zip(_INT_FIELDS, (N, R, G, Q, RJ, K, T, C, P1, S, W, int(max_iterations))):
+    for name, v in zip(_INT_FIELDS, (N, R, G, Q, RJ, K, T, C, P1, S, W, int(max_iterations),
+                                     BR, P)):
         setattr(args, name, v)
     stream = stream_handle()
     check(lib.armada_round_prologue(ctypes.byref(args), stream), "round prologue")
@@ -149,8 +189,9 @@ def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_i
                               MAX_FIXPOINT_ITERS, stream),
         "round kernels",
     )
-    kernels.LAUNCHES["round"] += 1
-    scal = st["scal"]
+    kernels.LAUNCHES["round_stacked" if lanes else "round"] += 1
+    scal = st["scal"] if lanes else st["scal"][:, 0]
+    spot = st["spot_price"] if lanes else st["spot_price"][0]
     return RoundResult(
         g_state=st["g_state"],
         slot_gang=st["slot_gang"],
@@ -164,7 +205,7 @@ def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_i
         iterations=scal[1],
         termination=scal[2],
         scheduled_count=scal[3],
-        spot_price=st["spot_price"][0],
+        spot_price=spot,
         q_killed=st["q_killed"],
         kernel_iters=scal[5],
     )

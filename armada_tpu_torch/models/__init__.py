@@ -7,12 +7,16 @@ result back to ids.  The steady-state path keeps the problem on the device
 across cycles instead: `incremental.IncrementalBuilder` turns each cycle's
 submits, leases and removals into a `slab.DeltaBundle`, and
 `slab.DeviceDeltaCache` scatters it into the resident problem.  Every round
-can be verified (`verify`) and, on its cadence, explained (`explain`).  This
-is the serial single-pool path: one round for one pool, with the
-gang-transaction rollback loop.
+can be verified (`verify`) and, on its cadence, explained (`explain`).
+`run_round_on_device` is the serial path: one round for one pool, with the
+gang-transaction rollback loop.  `dispatch_pool_rounds` is the
+pool-parallel one: every pool's round is dispatched before any is fetched,
+and pools whose problems match in shape run as one stacked round.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -47,8 +51,32 @@ def _kernel_kwargs(problem, ctx) -> dict:
     )
 
 
+def _round_env(problem, ctx, config, explain_enabled=True):
+    """The per-round prologue shared by run_round_on_device and the
+    pool-parallel dispatchers: the kernel statics and the ONE explain
+    cadence tick this round gets (exactly once per pool round, even when a
+    stacked dispatch hands the lane to a solo one).  Away rounds pass
+    explain_enabled=False and never tick: their outcome.explain is
+    discarded, and a tick would shift the host pool's cadence."""
+    if config.enable_prefer_large_job_ordering and not bool(problem.market):
+        raise NotImplementedError("prefer_large ordering is not ported yet")
+    from armada_tpu_torch.models import explain as _explain
+
+    explain_armed = bool(explain_enabled) and _explain.explain_due(getattr(ctx, "pool", ""))
+    return _kernel_kwargs(problem, ctx), explain_armed
+
+
+def _build_device_problem(problem, device_problem, device):
+    """The round's device problem: the caller's (a value, or a zero-arg
+    callable such as DeviceDeltaCache.apply), else a fresh upload."""
+    dp = device_problem() if callable(device_problem) else device_problem
+    if dp is None:
+        dp = problem_from_numpy(problem, device)
+    return dp
+
+
 def run_round_on_device(problem, ctx, config, device="cuda", device_problem=None,
-                        shadow_work=(), host_problem=None):
+                        shadow_work=(), host_problem=None, explain_enabled=True):
     """(result, outcome): run the round on a built problem and decode it,
     including the gang-transaction rollback loop, round verification (when
     armed, models/verify.py) and the explain pass (on its cadence,
@@ -64,23 +92,215 @@ def run_round_on_device(problem, ctx, config, device="cuda", device_problem=None
     such as the next submits and their slab prefetch).  `host_problem` (a
     problem or a thunk, e.g. DeltaBundle.materialize) is accepted for the
     JAX package's signature; the port has no CPU failover rung that would
-    read it yet (ROADMAP item 8).  RoundVerificationError propagates:
-    nothing is re-run quietly."""
+    read it yet (ROADMAP item 8).  `explain_enabled=False` (away rounds)
+    leaves the explain cadence untouched.  RoundVerificationError
+    propagates: nothing is re-run quietly."""
     device = _resolve_device(device)
-    if config.enable_prefer_large_job_ordering and not bool(problem.market):
-        raise NotImplementedError("prefer_large ordering is not ported yet")
-    from armada_tpu_torch.models import explain as _explain
+    kernel_kwargs, explain_armed = _round_env(problem, ctx, config, explain_enabled)
+    return _round_body(_build_device_problem(problem, device_problem, device), ctx,
+                       kernel_kwargs, device, shadow_work, explain_armed)
 
-    explain_armed = _explain.explain_due(getattr(ctx, "pool", ""))
-    dp = device_problem() if callable(device_problem) else device_problem
-    if dp is None:
-        dp = problem_from_numpy(problem, device)
-    return _round_body(dp, ctx, _kernel_kwargs(problem, ctx), device, shadow_work,
-                       explain_armed)
+
+def dispatch_round_on_device(problem, ctx, config, device="cuda", device_problem=None,
+                             shadow_work=(), host_problem=None, explain_enabled=True):
+    """Phase-split run_round_on_device: dispatch NOW -- the device problem,
+    the round, its compaction, the verify and explain enqueues, the shadow
+    work -- and return a zero-arg ``finish()`` -> (result, outcome) that
+    performs the blocking fetch, the verdict, the decode and the rollback
+    loop LATER.  Between the two the caller may dispatch other pools'
+    rounds.  Decisions equal run_round_on_device's: the split only reorders
+    asynchronous enqueues that never read another round's output.
+
+    The port runs the JAX package's inline discipline only (no watchdog
+    deadline): dispatch errors propagate, and a RoundVerificationError
+    propagates out of ``finish()`` -- there is no failover ladder yet
+    (ROADMAP item 8)."""
+    device = _resolve_device(device)
+    env = _round_env(problem, ctx, config, explain_enabled)
+    return _dispatch_one(problem, ctx, device_problem, env, device, shadow_work)
+
+
+def _dispatch_one(problem, ctx, device_problem, env, device, shadow_work=()):
+    """dispatch_round_on_device with a precomputed _round_env (the explain
+    tick happened there, once per round)."""
+    kernel_kwargs, explain_armed = env
+    handle = _dispatch_body(_build_device_problem(problem, device_problem, device), ctx,
+                            kernel_kwargs, device, shadow_work, explain_armed)
+    return lambda: _finish_body(handle)
+
+
+@dataclasses.dataclass
+class PoolRoundSpec:
+    """One pool's round inputs for dispatch_pool_rounds -- the arguments its
+    run_round_on_device call would take."""
+
+    problem: object  # stats_view / SchedulingProblem (host side)
+    ctx: object  # HostContext
+    device_problem: object = None  # device buffers, or a thunk producing them
+    host_problem: object = None  # accepted for the JAX signature (no failover rung yet)
+    shadow_work: tuple = ()
+    explain_enabled: bool = True
+
+
+def dispatch_pool_rounds(specs, config, allow_stacking=True, device="cuda"):
+    """Dispatch MANY pools' rounds through the device before ANY fetch --
+    the pool-parallel cycle's device phase (scheduler/algo.py windows).
+
+    Returns ``(finishes, stacked_launches, stacked_pools,
+    dispatch_failed)``: ``finishes[i]()`` -> (result, outcome) for
+    specs[i], to be called IN POOL ORDER.  Pools whose device problems
+    match in every field's shape and dtype, on one device, with the same
+    kernel statics, run as ONE stacked round (schedule_round_stacked, kernel
+    K-D, after one stacking launch, K-E) with one stacked compaction (K-F)
+    and one stacked verification (K-I stacked): one launch sequence, one
+    compact fetch, one verify fetch for the whole group --
+    ``stacked_launches`` counts them, ``stacked_pools`` the pools they
+    covered.
+
+    The port runs the JAX package's inline discipline only (no watchdog
+    deadline, no supervisor, no serving mesh, no fault drills), so
+    stacking reduces to ``allow_stacking and len(specs) > 1``;
+    ``dispatch_failed`` is always empty (no dispatch walks a failover
+    ladder), and a RoundVerificationError propagates out of the failing
+    pool's finish (ROADMAP item 8)."""
+    device = _resolve_device(device)
+    envs = [_round_env(s.problem, s.ctx, config, s.explain_enabled) for s in specs]
+    finishes: list = [None] * len(specs)
+    dispatch_failed: set = set()
+    if not (allow_stacking and len(specs) > 1):
+        for i, s in enumerate(specs):
+            finishes[i] = _dispatch_one(s.problem, s.ctx, s.device_problem, envs[i], device,
+                                        s.shadow_work)
+        return finishes, 0, 0, dispatch_failed
+
+    # Phase 1: every pool's device problem (the O(delta) cache scatters).
+    dps = [_build_device_problem(s.problem, s.device_problem, device) for s in specs]
+
+    # Phase 2: group by (statics, device, exact field shapes and dtypes);
+    # insertion order keeps groups in first-member pool order.  torch.Size
+    # and dtype objects hash as they are: no per-cycle string work.
+    groups: dict = {}
+    for i, dp in enumerate(dps):
+        key = (
+            tuple(sorted(envs[i][0].items())),
+            dp.g_req.device,
+            tuple((t.shape, t.dtype) for t in dp),
+        )
+        groups.setdefault(key, []).append(i)
+
+    stacked_launches = 0
+    stacked_pools = 0
+    for key, idxs in groups.items():
+        if len(idxs) == 1:
+            i = idxs[0]
+            finishes[i] = _dispatch_one(specs[i].problem, specs[i].ctx, dps[i], envs[i], device,
+                                        specs[i].shadow_work)
+            continue
+        group_finishes = _dispatch_stacked_group(idxs, specs, envs, dps, device, key)
+        stacked_launches += 1
+        stacked_pools += len(idxs)
+        for i, fin in zip(idxs, group_finishes):
+            finishes[i] = fin
+    return finishes, stacked_launches, stacked_pools, dispatch_failed
+
+
+# (group key) -> (per-pool device problems, stacked problem).  Steady cycles
+# present the SAME device problem objects every cycle (DeviceDeltaCache's
+# no-op apply hands back its resident problem), so the stack is reused by
+# identity.  Entries hold strong references, which makes the identity test
+# safe: a cached tensor cannot be freed and its address reused while the
+# entry lives.  The size cap bounds what it pins.
+_STACK_CACHE: dict = {}
+_STACK_CACHE_CAP = 8
+
+
+def reset_stack_cache() -> None:
+    """Drop every memoized stack (and the device buffers it pins)."""
+    _STACK_CACHE.clear()
+
+
+def _stack_problems(key, dps):
+    """Stack P device problems along a new leading lane axis -- ONE launch
+    of kernel K-E on a card, torch.stack per field on the CPU -- memoized by
+    operand identity so idle steady cycles skip even that."""
+    from armada_tpu_torch.kernels.lanes import stack
+
+    dps = tuple(dps)
+    hit = _STACK_CACHE.get(key)
+    if hit is not None and len(hit[0]) == len(dps) and all(
+        a is b for a, b in zip(hit[0], dps)
+    ):
+        return hit[1]
+    stacked = stack(dps)
+    if len(_STACK_CACHE) >= _STACK_CACHE_CAP:
+        _STACK_CACHE.clear()
+    _STACK_CACHE[key] = (dps, stacked)
+    return stacked
+
+
+def _dispatch_stacked_group(idxs, specs, envs, dps, device, group_key):
+    """ONE stacked launch for a shape-matched pool group: stack the device
+    problems (K-E), run the stacked round (K-D), dispatch the stacked
+    compaction (K-F) and verification (K-I stacked), and hand back per-pool
+    finish callables that share the two fetched buffers.  Lane views of the
+    problem and the result are sliced lazily (K-G): only the explain pass,
+    a rollback re-run and a cap overflow read them."""
+    from armada_tpu_torch.models import explain as _explain
+    from armada_tpu_torch.models import verify as _verify
+    from armada_tpu_torch.models.fair_scheduler import schedule_round_stacked
+    from armada_tpu_torch.models.problem import begin_decode_stacked, lane_slice
+    from armada_tpu_torch.models.xfer import TRANSFER_STATS
+
+    kk = envs[idxs[0]][0]
+    ctxs = [specs[i].ctx for i in idxs]
+    stacked = _stack_problems(group_key, [dps[i] for i in idxs])
+    result = schedule_round_stacked(stacked, **kk)
+    verify_armed = _verify.verify_enabled()
+    fins = begin_decode_stacked(result, ctxs)
+    ver_buf = None
+    if verify_armed:
+        ver_buf = _verify.dispatch_verify_stacked(stacked, result, fins[0].dispatched[0], ctxs)
+    vbox: dict = {}
+
+    def ver_rows() -> np.ndarray:
+        if "v" not in vbox:
+            arr = ver_buf.cpu().numpy()
+            TRANSFER_STATS.count_down(arr.nbytes)
+            vbox["v"] = arr
+        return vbox["v"]
+
+    out = []
+    for j, i in enumerate(idxs):
+        s = specs[i]
+        ctx = s.ctx
+        pool = getattr(ctx, "pool", "")
+        explain_armed = envs[i][1]
+        fin = fins[j]
+        lane_result = lambda j=j: lane_slice(result, j)  # noqa: E731
+        ver_check = None
+        if ver_buf is not None:
+
+            def ver_check(j=j, ctx=ctx, pool=pool, fin=fin):
+                fin.fetch()  # this pool's compact row (one shared transfer)
+                _verify.verdict_of(ver_rows()[j], ctx, pool=pool)
+
+        exp_dispatched = None
+        if explain_armed:
+            exp_dispatched = _explain.dispatch_explain(lane_slice(stacked, j), lane_result(), ctx)
+        handle = _RoundHandle(
+            dp=(lambda j=j: lane_slice(stacked, j)), ctx=ctx, kernel_kwargs=kk, device=device,
+            result=lane_result, finish=fin, ver_check=ver_check, exp_dispatched=exp_dispatched,
+            explain_armed=explain_armed, verify_armed=verify_armed, pool=pool,
+        )
+        for fn in s.shadow_work:  # this pool's shadow work rides the stack
+            fn()
+        out.append(lambda handle=handle: _finish_body(handle))
+    return out
 
 
 class _RoundHandle:
-    """What the dispatch half hands the finish half."""
+    """What the dispatch half hands the finish half.  `dp` and `result` may
+    be zero-arg callables (a stacked lane, sliced on demand)."""
 
     __slots__ = ("dp", "ctx", "kernel_kwargs", "device", "result", "finish", "ver_check",
                  "exp_dispatched", "explain_armed", "verify_armed", "pool")
@@ -88,6 +308,11 @@ class _RoundHandle:
     def __init__(self, **kw):
         for k, v in kw.items():
             setattr(self, k, v)
+
+    def device_problem(self):
+        if callable(self.dp):
+            self.dp = self.dp()
+        return self.dp
 
 
 def _dispatch_body(device_problem, ctx, kernel_kwargs, device, shadow_work=(),
@@ -128,7 +353,9 @@ def _dispatch_body(device_problem, ctx, kernel_kwargs, device, shadow_work=(),
 
 def _finish_body(h: _RoundHandle):
     """The round's fetch half: the verdict, the decode, the gang-transaction
-    rollback loop (each re-run verified too) and the explain fetch."""
+    rollback loop (each re-run verified too) and the explain fetch.  The
+    returned result may be a zero-arg callable (a stacked lane the rollback
+    never replaced); collect_round_stats resolves it."""
     from armada_tpu_torch.models import explain as _explain
     from armada_tpu_torch.models import verify as _verify
 
@@ -149,7 +376,6 @@ def _finish_body(h: _RoundHandle):
     # attempt cap bounds latency, and past it the partial gangs are forced
     # out so no half-gang ever stands.
     attempts = 0
-    device_problem = h.dp
     while attempts < 4:
         kill: list = []
         if outcome.unwound_groups:
@@ -163,15 +389,17 @@ def _finish_body(h: _RoundHandle):
                 else range(ctx.num_real_gangs)
             )
             kill.extend(gi for gi in tagged if ctx.gang_group[gi] in outcome.unwound_groups)
-        kill.extend(_partial_running_gangs(ctx, device_problem, outcome))
+        kill.extend(_partial_running_gangs(ctx, h.device_problem, outcome))
         if not kill:
             break
         attempts += 1
         # a new g_valid tensor: the problem the caller holds is not written
+        device_problem = h.device_problem()
         g_valid = device_problem.g_valid.clone()
         g_valid[torch.as_tensor(sorted(set(kill)), dtype=torch.long,
                                 device=g_valid.device)] = False
         device_problem = device_problem._replace(g_valid=g_valid)
+        h.dp = device_problem
         result = schedule_round(device_problem, device=device, **kernel_kwargs)
         fin = begin_decode(result, ctx)
         if h.verify_armed:
@@ -183,7 +411,7 @@ def _finish_body(h: _RoundHandle):
         outcome = fin()
     if attempts and h.explain_armed:
         # attribution describes the final (post-rollback) round: re-dispatch once
-        exp_dispatched = _explain.dispatch_explain(device_problem, result, ctx)
+        exp_dispatched = _explain.dispatch_explain(h.device_problem(), result, ctx)
     if attempts >= 4:
         _force_preempt_partials(ctx, outcome)
     if exp_dispatched is not None:
@@ -221,13 +449,15 @@ def _iter_partial_gangs(ctx, outcome):
             yield ris, retained
 
 
-def _partial_running_gangs(ctx, device_problem, outcome) -> list:
-    """Evictee-slot gang indices to invalidate for the cascade re-run."""
+def _partial_running_gangs(ctx, dp_thunk, outcome) -> list:
+    """Evictee-slot gang indices to invalidate for the cascade re-run.
+    `dp_thunk` resolves the device problem lazily (a stacked lane is sliced
+    only when a round preempted part of a running gang)."""
     run_gang = None
     kill: list = []
     for ris, _retained in _iter_partial_gangs(ctx, outcome):
         if run_gang is None:
-            run_gang = device_problem.run_gang.cpu().numpy()
+            run_gang = dp_thunk().run_gang.cpu().numpy()
         for ri in ris:
             gi = int(run_gang[ri])
             if gi >= 0:
@@ -245,7 +475,10 @@ def _force_preempt_partials(ctx, outcome) -> None:
 
 def collect_round_stats(result, problem, ctx, config, outcome) -> None:
     """Attach per-queue share stats (and indicative shares) to the outcome.
-    The water-filling runs on the device the result lies on."""
+    The water-filling runs on the device the result lies on.  `result` may
+    be a zero-arg callable (a stacked lane's lazy slice): resolved here."""
+    if callable(result):
+        result = result()
     from armada_tpu_torch.models.problem import queue_stats_from_result
 
     outcome.queue_stats = queue_stats_from_result(result, problem, ctx)
@@ -296,7 +529,10 @@ def run_scheduling_round(
         banned_nodes=banned_nodes,
         queue_penalty=queue_penalty,
     )
-    result, outcome = run_round_on_device(problem, ctx, config, device=device)
+    # away rounds: attribution is a home-round signal (the away apply
+    # discards outcome.explain), so they leave the host pool's cadence alone
+    result, outcome = run_round_on_device(problem, ctx, config, device=device,
+                                          explain_enabled=not away_mode)
     if collect_stats:
         collect_round_stats(result, problem, ctx, config, outcome)
     return outcome
@@ -305,6 +541,10 @@ def run_scheduling_round(
 __all__ = [
     "run_scheduling_round",
     "run_round_on_device",
+    "dispatch_round_on_device",
+    "dispatch_pool_rounds",
+    "PoolRoundSpec",
+    "reset_stack_cache",
     "collect_round_stats",
     "SchedulingProblem",
     "HostContext",

@@ -24,12 +24,21 @@ jitted `_schedule_round_jit`); on the CPU it runs `schedule_round_plain`,
 the plain PyTorch version below, which is the readable specification of what
 the kernels compute.  Only the single-commit, uncached loop body is ported
 (commit_k=1, cache_slots=0, batch_k=1, unroll=1): the JAX package's other
-settings of those knobs are decision-identical to it.  prefer_large and
+settings of those knobs are decision-identical to it; an environment that
+arms them (ARMADA_COMMIT_K, ARMADA_CACHE_SLOTS, ARMADA_BATCH_K above their
+accelerator defaults) raises instead of being ignored.  prefer_large and
 hetero type bias (TR > 1) are not ported yet and raise.
+
+`schedule_round_stacked` runs P pools whose problems match in every shape
+as one stacked round (a leading lane axis on every field): kernel K-D on a
+card, `schedule_round_stacked_plain` (a loop of the solo plain round over
+the lanes) on the CPU.  The lanes are independent, so each equals the solo
+round on its slice.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -85,9 +94,10 @@ def resolve_round_statics(p: SchedulingProblem, *, max_iterations: int = 0,
                           commit_k: int = -1) -> int:
     """Check the statics against the ported loop shape and return the
     iteration bound (2G + Q + 8 when max_iterations <= 0)."""
+    o = 1 if p.q_weight.dim() == 2 else 0  # a stacked problem's lane axis
     if prefer_large:
         raise NotImplementedError("prefer_large ordering is not ported yet")
-    if int(p.type_bias.shape[0]) > 1:
+    if int(p.type_bias.shape[o]) > 1:
         raise NotImplementedError("hetero type bias (TR > 1) is not ported yet")
     for name, value, ok in (
         ("cache_slots", cache_slots, (-1, 0)),
@@ -99,9 +109,24 @@ def resolve_round_statics(p: SchedulingProblem, *, max_iterations: int = 0,
             raise NotImplementedError(
                 f"{name}={value} is not ported; the port runs {name}={ok[1]}"
             )
-    G = int(p.g_req.shape[0])
-    Q = int(p.q_weight.shape[0])
+    for name, default in (("ARMADA_COMMIT_K", 1), ("ARMADA_CACHE_SLOTS", 0),
+                          ("ARMADA_BATCH_K", 1)):
+        env = os.environ.get(name)
+        if env and _env_int(env, default) > default:
+            raise NotImplementedError(
+                f"{name}={env} arms a loop shape that is not ported; the port runs "
+                f"{name}={default}"
+            )
+    G = int(p.g_req.shape[o])
+    Q = int(p.q_weight.shape[o])
     return max_iterations if max_iterations > 0 else 2 * G + Q + 8
+
+
+def _env_int(text: str, default: int) -> int:
+    try:
+        return int(text)
+    except ValueError:
+        return default
 
 
 def schedule_round(
@@ -143,6 +168,54 @@ def schedule_round(
         p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
         max_iterations=max_iterations,
     )
+
+
+def schedule_round_stacked(
+    p: SchedulingProblem,
+    *,
+    num_levels: int,
+    max_slots: int,
+    slot_width: int,
+    max_iterations: int = 0,
+    prefer_large: bool = False,
+    cache_slots: int = -1,
+    unroll: int = -1,
+    batch_k: int = -1,
+    commit_k: int = -1,
+) -> RoundResult:
+    """Run P independent pools' rounds as one stacked round.  Every field of
+    `p` carries a leading lane axis (lane i is pool i's padded problem, all
+    lanes equal in shape); so does every field of the result.  The statics
+    resolve as for `schedule_round`, from the per-lane shapes.  A CUDA
+    problem runs kernel K-D; a CPU problem the plain version."""
+    if p.q_weight.dim() != 2 or int(p.g_req.shape[0]) < 1:
+        raise ValueError("schedule_round_stacked: expected a [P, ...] stacked problem")
+    max_iterations = resolve_round_statics(
+        p, max_iterations=max_iterations, prefer_large=prefer_large,
+        cache_slots=cache_slots, unroll=unroll, batch_k=batch_k, commit_k=commit_k,
+    )
+    from armada_tpu_torch.kernels.round import schedule_round_stacked as wrapper
+
+    return wrapper(
+        p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
+        max_iterations=max_iterations,
+    )
+
+
+def schedule_round_stacked_plain(
+    p: SchedulingProblem, *, num_levels: int, max_slots: int, slot_width: int,
+    max_iterations: int,
+) -> RoundResult:
+    """The plain version of kernel K-D: the solo plain round on each lane,
+    stacked.  Exact because the lanes share nothing."""
+    lanes = [
+        schedule_round_plain(
+            SchedulingProblem(*(t[i] for t in p)), num_levels=num_levels,
+            max_slots=max_slots, slot_width=slot_width, max_iterations=max_iterations,
+        )
+        for i in range(int(p.g_req.shape[0]))
+    ]
+    return RoundResult(*(torch.stack([getattr(r, f) for r in lanes]) for f in RoundResult._fields))
 
 
 # --- the plain version -------------------------------------------------------

@@ -1418,6 +1418,69 @@ def begin_decode(result, ctx: HostContext):
     return finish
 
 
+def begin_decode_stacked(result, ctxs: list):
+    """begin_decode for a stacked round: `result` is a RoundResult whose
+    every field carries a leading lane axis (schedule_round_stacked);
+    `ctxs[i]` is lane i's HostContext.  One stacked compaction (kernel K-F
+    on a card) and one [P, L] device-to-host copy replace P of each.
+
+    Returns per-lane finish callables with begin_decode's API: ``finish()``
+    -> RoundOutcome, ``finish.fetch()`` = the blocking fetch of THIS lane's
+    row (the first caller pays the one shared transfer),
+    ``finish.dispatched`` = the shared (buffer, fcap, ecap) handle.  Unlike
+    the JAX package, which returns None for a host-array result, the port
+    always decodes stacked: a CPU stack runs the plain versions."""
+    from armada_tpu_torch.kernels.compact import compact_result_stacked
+    from armada_tpu_torch.models.xfer import TRANSFER_STATS
+
+    G = int(result.g_state.shape[1])
+    RJ = int(result.run_evicted.shape[1])
+    fcap = min(G, COMPACT_FCAP)
+    ecap = min(RJ, COMPACT_ECAP) if RJ else 0
+    buf = compact_result_stacked(
+        result, [c.num_real_gangs for c in ctxs], [c.num_real_runs for c in ctxs],
+        fcap=fcap, ecap=ecap,
+    )
+    box: dict = {}
+
+    def fetch_all() -> np.ndarray:
+        if "all" not in box:
+            arr = buf.cpu().numpy()
+            TRANSFER_STATS.count_down(arr.nbytes)
+            box["all"] = arr
+        return box["all"]
+
+    finishes = []
+    for i, ctx in enumerate(ctxs):
+
+        def fetch(i=i, ctx=ctx):
+            if i not in box:
+                box[i] = _parse_compact(fetch_all()[i], ctx, fcap, ecap)
+            return box[i]
+
+        def finish(i=i, ctx=ctx, fetch=fetch) -> RoundOutcome:
+            fetched = fetch()
+            # the lane slice of the stacked result is taken only when a cap
+            # overflowed (the full-array decode needs it)
+            lane = None if fetched is not None else lane_slice(result, i)
+            return decode_result(lane, ctx, _fetched=fetched)
+
+        finish.dispatched = (buf, fcap, ecap)
+        finish.fetch = fetch
+        finish.stacked_index = i
+        finishes.append(finish)
+    return finishes
+
+
+def lane_slice(tree, i: int):
+    """Lane `i` of a stacked SchedulingProblem or RoundResult, every field
+    in a fresh buffer: one launch of kernel K-G on a card, t[i].clone() per
+    field on the CPU."""
+    from armada_tpu_torch.kernels.lanes import lane_slice as wrapper
+
+    return wrapper(tree, i)
+
+
 _UNFETCHED = object()  # decode_result sentinel: None is a real fetch result
 
 

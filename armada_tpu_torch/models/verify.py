@@ -350,6 +350,28 @@ def dispatch_verify(device_problem, result, compact_dispatched, ctx):
                                        ctx.num_real_gangs))
 
 
+def dispatch_verify_stacked(device_problem, result, compact_buf, ctxs):
+    """Verification for a stacked round: the stacked K-I over the P lanes of
+    the stacked problem, result and [P, L] compact buffer -- one i32 [P, 16]
+    buffer, one fetch for the whole stack.  Each lane's fingerprint folds
+    over exactly the row its decode fetch carries.  Returns the device
+    buffer; the JAX package returns None for a host-array result, and the
+    port has none (a CPU stack runs the plain version), so this returns
+    None only without a compact buffer.  Per-lane verdicts come from
+    ``verdict_of`` on the fetched rows."""
+    from armada_tpu_torch.kernels.verify import verify_round_stacked
+
+    if compact_buf is None:
+        return None
+    p, r = device_problem, result
+    return verify_round_stacked(
+        p.node_total, p.node_ok, p.node_axes, p.run_req, p.run_node, p.run_queue,
+        p.run_valid, p.g_req, p.g_card, p.g_queue, p.g_run, r.g_state, r.slot_gang,
+        r.slot_nodes, r.slot_counts, r.n_slots, r.run_evicted, r.run_rescheduled, r.alloc,
+        r.q_alloc, r.scheduled_count, compact_buf, [c.num_real_gangs for c in ctxs],
+    )
+
+
 def host_fingerprint(buf: np.ndarray) -> tuple:
     """(xor, sum) folds over a host i32 buffer, matching the device folds
     bit for bit (i32 wraparound on the sum)."""

@@ -1,0 +1,21 @@
+"""The scheduling cycle of the port: FairSchedulingAlgo over the JobDb.
+
+`algo.FairSchedulingAlgo.schedule(txn, executors, now_ns)` is the
+per-cycle entry point: every pool's round, assembled by an
+`incremental_algo.IncrementalProblemFeed` attached to the JobDb (or built
+per cycle from the txn), run on the card -- serially, or pool-parallel with
+shape-matched pools stacked into one launch (ARMADA_POOL_PARALLEL=1) -- and
+the decisions applied back to the txn.
+"""
+
+from armada_tpu_torch.scheduler.algo import FairSchedulingAlgo, PoolStats, SchedulerResult
+from armada_tpu_torch.scheduler.executors import ExecutorSnapshot
+from armada_tpu_torch.scheduler.incremental_algo import IncrementalProblemFeed
+
+__all__ = [
+    "ExecutorSnapshot",
+    "FairSchedulingAlgo",
+    "IncrementalProblemFeed",
+    "PoolStats",
+    "SchedulerResult",
+]

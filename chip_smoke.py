@@ -13,6 +13,13 @@ the incremental path over the same world: the steady-state cycle
 explain pass, K-J, on its cadence -> decisions applied back), one warm and
 three steady cycles, each kernel held against its plain version on the
 cycle's own state.  A small world runs that path first, to fail fast.
+Then the pools path: the same world split over 8 pools and driven through
+FairSchedulingAlgo.schedule over a JobDb and an IncrementalProblemFeed, a
+fill and three steady cycles with ARMADA_POOL_PARALLEL=1 (the seven
+shape-matched pools stacked into one launch: K-E, K-D, K-F, the stacked
+K-I, K-G) and =0, which must decide the same; its kernels are held against
+their plain versions on small windows of lanes before the main path, and
+on a steady cycle's own state.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
@@ -56,6 +63,12 @@ SOURCES = {
     "slab": ("armada_tpu_torch/csrc/slab.cu", "armada_tpu/models/slab.py:258"),
     "verify": ("armada_tpu_torch/csrc/verify.cu", "armada_tpu/models/verify.py:272"),
     "explain": ("armada_tpu_torch/csrc/explain.cu", "armada_tpu/models/explain.py:205"),
+    "round_stacked": ("armada_tpu_torch/csrc/round.cu",
+                      "armada_tpu/models/fair_scheduler.py:1788"),
+    "stack": ("armada_tpu_torch/csrc/lanes.cu", "armada_tpu/models/__init__.py:658"),
+    "compact_stacked": ("armada_tpu_torch/csrc/compact.cu", "armada_tpu/models/problem.py:1501"),
+    "lane_slice": ("armada_tpu_torch/csrc/lanes.cu", "armada_tpu/models/problem.py:1596"),
+    "verify_stacked": ("armada_tpu_torch/csrc/verify.cu", "armada_tpu/models/verify.py:496"),
 }
 # The incremental path: the steady-state cycle over the main path's world
 # (bench.py's _e2e_bench shape): one warm cycle (full upload), then steady
@@ -844,6 +857,480 @@ def incremental_path(dev, world, main_outcome) -> dict:
                 plain_round_s=plain_round_s)
 
 
+# --- the pools path: the multi-pool serving cycle -----------------------------------
+
+# The main world split over 8 pools (bench.py's ARMADA_BENCH_POOLS default):
+# seven of 5,700 nodes and one of 10,100, 125,000 queued jobs and 3,125 runs
+# each, every job restricted to its pool.  At shape_bucket 8,192 the seven
+# small pools pad to 8,192 nodes and stack into one 7-lane launch; the large
+# pool pads to 16,384 and dispatches solo in the same window.
+POOL_NODES = (5_700,) * 7 + (10_100,)
+POOL_BUCKET = 8_192
+POOL_STEADY_CYCLES = 3
+POOL_BURST = 1_000  # fresh specs per steady cycle, 125 a pool
+# the small window the new kernels are held on first: lanes of one shape
+# with different data
+POOL_LANES_SYNTH = dict(num_nodes=1_000, num_gangs=6_000, num_queues=40, num_runs=400,
+                        max_gang_cardinality=8)
+POOL_LANES_EVICT = dict(num_nodes=1_500, num_jobs=15_000, num_queues=32, num_runs=4_000, seed=2)
+
+
+def _stacked_check(name: str, lanes: list, meta: dict, dev) -> dict:
+    """K-E, K-D, K-F, K-I stacked and K-G on `lanes` (device problems of one
+    shape) against their plain versions on the card, and K-D's lanes
+    against the solo round (K-B)."""
+    import torch
+
+    from armada_tpu_torch.kernels import lanes as KL
+    from armada_tpu_torch.kernels.compact import (
+        compact_result_stacked, compact_result_stacked_plain,
+    )
+    from armada_tpu_torch.kernels.round import schedule_round as round_kernel
+    from armada_tpu_torch.kernels.round import schedule_round_stacked as stacked_kernel
+    from armada_tpu_torch.kernels.verify import verify_round_stacked
+    from armada_tpu_torch.models import verify as V
+    from armada_tpu_torch.models.fair_scheduler import (
+        resolve_round_statics, schedule_round_stacked_plain,
+    )
+    from armada_tpu_torch.models.problem import COMPACT_ECAP, COMPACT_FCAP
+
+    P = len(lanes)
+    st = KL.stack(lanes)
+    problems_equal(st, KL.stack_plain(lanes), f"{name}: K-E vs torch.stack")
+    kw = dict(meta, max_iterations=resolve_round_statics(st))
+    k = stacked_kernel(st, **kw)
+    torch.cuda.synchronize()
+    p = schedule_round_stacked_plain(st, **kw)
+    torch.cuda.synchronize()
+    max_err(k, p)
+    for i, lane in enumerate(lanes):
+        solo = round_kernel(lane, **kw)
+        max_err(KL.lane_slice(k, i), solo)
+        problems_equal(KL.lane_slice(st, i), KL.slice_plain(st, i), f"{name}: K-G lane {i}")
+    G, RJ = int(st.g_req.shape[1]), int(st.run_req.shape[1])
+    fcap, ecap = min(G, COMPACT_FCAP), min(RJ, COMPACT_ECAP)
+    real_g = [G - 7 * i for i in range(P)]
+    real_r = [RJ - 3 * i for i in range(P)]
+    kf = compact_result_stacked(k, real_g, real_r, fcap=fcap, ecap=ecap)
+    max_err(kf, compact_result_stacked_plain(k, real_g, real_r, fcap=fcap, ecap=ecap))
+    vin = V.verify_inputs(st, k, kf, 0)  # alloc[0] there is lane 0: pass the whole alloc
+    ki = verify_round_stacked(*vin[:18], k.alloc, *vin[19:22], real_g)
+    ki_plain = torch.stack([
+        V.verify_kernel_plain(*V.verify_inputs(lane, KL.lane_slice(k, i), kf[i], real_g[i]))
+        for i, lane in enumerate(lanes)
+    ])
+    max_err(ki, ki_plain)
+    info = dict(lanes=P, iterations=[int(x) for x in k.iterations],
+                scheduled=[int(x) for x in k.scheduled_count],
+                evicted=[int(x.sum()) for x in k.run_evicted],
+                rescheduled=[int(x.sum()) for x in k.run_rescheduled])
+    log(f"K-D/K-E/K-F/K-G/K-I stacked [{name}]: kernels == plain, lanes == solo K-B {info}")
+    return info
+
+
+def check_pool_kernels(dev) -> dict:
+    """The kernels of the pools path against their plain versions on the
+    card, on small windows of lanes with one shape and different data: K-A
+    with a lane axis; then gang lanes (synthetic_problem, three seeds) and
+    eviction lanes (one eviction world, each lane with other queue weights
+    and node and gang masks, so phase B runs in every lane)."""
+    import torch
+
+    from armada_tpu_torch.kernels.fair_shares import fair_shares, fair_shares_lanes_plain
+    from armada_tpu_torch.models.state import problem_from_numpy
+    from armada_tpu_torch.models.synthetic import synthetic_problem
+
+    out = {}
+    rng = np.random.default_rng(11)
+    for P, Q in ((3, 29), (7, 64), (4, 8193)):
+        w = torch.as_tensor(rng.choice([0.0, 0.5, 1.0, 2.0, 3.7], (P, Q)).astype(np.float32),
+                            device=dev)
+        c = torch.as_tensor((rng.random((P, Q)) * 0.1).astype(np.float32), device=dev)
+        for x, y in zip(fair_shares(w, c), fair_shares_lanes_plain(w, c)):
+            max_err(x, y)
+    log("K-A fair_shares with a lane axis (P x Q = 3x29, 7x64, 4x8193): kernel == plain")
+    lanes, meta = [], None
+    for seed in range(3):
+        prob, meta = synthetic_problem(**POOL_LANES_SYNTH, seed=seed)
+        lanes.append(problem_from_numpy(prob, dev))
+    out["gangs"] = _stacked_check("gang lanes", lanes, meta, dev)
+    base, ctx = world_problem(POOL_LANES_EVICT, protected=0.0)
+    dp = problem_from_numpy(base, dev)
+    lanes = [dp]
+    for i in (1, 2, 3):
+        r = np.random.default_rng(100 + i)
+        lanes.append(dp._replace(
+            q_weight=torch.roll(dp.q_weight, i),
+            node_ok=dp.node_ok & torch.as_tensor(r.random(dp.node_ok.shape[0]) > 0.05 * i,
+                                                 device=dev),
+            g_valid=dp.g_valid & torch.as_tensor(r.random(dp.g_valid.shape[0]) > 0.1 * i,
+                                                 device=dev),
+        ))
+    out["evict"] = _stacked_check("eviction lanes", lanes, round_meta(ctx), dev)
+    if min(out["evict"]["evicted"]) == 0 or min(out["evict"]["rescheduled"]) == 0:
+        raise AssertionError(f"the eviction lanes must evict and reschedule: {out['evict']}")
+    return out
+
+
+def pools_world(world: dict, dev):
+    """(config, jdb, feed, algo, executors, specs_by_pool) for the 8-pool
+    split of the main world, its 1M jobs and 25k runs loaded through a
+    JobDb with an IncrementalProblemFeed attached."""
+    from armada_tpu_torch.core.config import PoolConfig
+    from armada_tpu_torch.jobdb.job import Job, JobRun
+    from armada_tpu_torch.jobdb.jobdb import JobDb
+    from armada_tpu_torch.scheduler.algo import FairSchedulingAlgo
+    from armada_tpu_torch.scheduler.executors import ExecutorSnapshot
+    from armada_tpu_torch.scheduler.incremental_algo import IncrementalProblemFeed
+
+    config, nodes, queues, specs, running, _ = world["world"]
+    names = [f"pool{i}" for i in range(len(POOL_NODES))]
+    cfg = dataclasses.replace(
+        config, pools=tuple(PoolConfig(n) for n in names), shape_bucket=POOL_BUCKET,
+        incremental_problem_build=True,
+        # unlimited rate buckets (bench.py's pools arm): at these backlogs
+        # armed buckets always bind and the cycle stays serial
+        maximum_scheduling_rate=0.0, maximum_per_queue_scheduling_rate=0.0,
+    )
+    starts = np.concatenate([[0], np.cumsum(POOL_NODES)])
+    if starts[-1] != len(nodes):
+        raise AssertionError(f"the pools split {starts[-1]} nodes, the world has {len(nodes)}")
+    pool_nodes = [
+        [dataclasses.replace(n, pool=names[p]) for n in nodes[starts[p]:starts[p + 1]]]
+        for p in range(len(names))
+    ]
+    per_pool = len(specs) // len(names)
+    runs_per_pool = len(running) // len(names)
+    jobs = []
+    for i, s in enumerate(specs):
+        pool = (names[min(i // per_pool, len(names) - 1)],)
+        jobs.append(Job(spec=dataclasses.replace(s, pools=pool), queued=True, validated=True,
+                        pools=pool))
+    for i, r in enumerate(running):
+        p = min(i // runs_per_pool, len(names) - 1)
+        node = pool_nodes[p][int(r.node_id[1:]) % len(pool_nodes[p])].id
+        pc = cfg.priority_class(r.job.priority_class).priority
+        spec = dataclasses.replace(r.job, pools=(names[p],))
+        jobs.append(Job(spec=spec, queued=False, validated=True, pools=(names[p],), runs=(
+            JobRun(id=f"run-{spec.id}", job_id=spec.id, node_id=node, node_name=node,
+                   pool=names[p], scheduled_at_priority=pc, running=True),
+        )))
+    jdb = JobDb(cfg)
+    feed = IncrementalProblemFeed(cfg, device=dev)
+    feed.attach(jdb)
+    txn = jdb.write_txn()
+    txn.upsert(jobs)
+    txn.commit()
+    executors = [
+        ExecutorSnapshot(id=f"ex-{n}", pool=n, nodes=tuple(pn), last_update_ns=POOL_NOW_NS)
+        for n, pn in zip(names, pool_nodes)
+    ]
+    run_ids = iter(range(10**9))
+    algo = FairSchedulingAlgo(
+        cfg, queues=lambda: queues, clock_ns=lambda: POOL_NOW_NS,
+        run_id_factory=lambda: f"prun{next(run_ids):08d}", collect_stats=False, feed=feed,
+        device=dev,
+    )
+    return cfg, jdb, feed, algo, executors, names
+
+
+POOL_NOW_NS = 10**12
+
+
+def _seven_lane_stack(feed, names):
+    """The 7-lane group this cycle stacked: (kernel kwargs, per-pool device
+    problems, stacked problem), the stack memo's entry whose lanes are the
+    seven small pools' resident problems."""
+    from armada_tpu_torch import models as M
+
+    resident = [feed.devcache_for(n).resident for n in names[:7]]
+    found = [(dict(key[0]), dps, st) for key, (dps, st) in M._STACK_CACHE.items()
+             if len(dps) == 7 and all(a is b for a, b in zip(dps, resident))]
+    if len(found) != 1:
+        raise AssertionError(f"expected one 7-lane stack of this cycle, found {len(found)}")
+    return found[0]
+
+
+def _replay_stack(kk: dict, dps, stacked) -> dict:
+    """Device times of the cycle's stacked kernels on its own state (CUDA
+    events), and of the seven solo K-B rounds they replace."""
+    from armada_tpu_torch.kernels import lanes as KL
+    from armada_tpu_torch.kernels.compact import compact_result_stacked
+    from armada_tpu_torch.kernels.round import schedule_round as round_kernel
+    from armada_tpu_torch.kernels.verify import verify_round_stacked
+    from armada_tpu_torch.models import verify as V
+    from armada_tpu_torch.models.fair_scheduler import (
+        resolve_round_statics, schedule_round_stacked,
+    )
+    from armada_tpu_torch.models.problem import COMPACT_ECAP, COMPACT_FCAP
+
+    with uncounted():
+        ke_ms, st = cuda_ms(lambda: KL.stack(dps), reps=3)
+        kd_ms, res = cuda_ms(lambda: schedule_round_stacked(stacked, **kk), reps=1)
+        kw = dict(kk, max_iterations=resolve_round_statics(dps[0]))
+        solo_ms = [cuda_ms(lambda d=d: round_kernel(d, **kw), reps=1)[0] for d in dps]
+        P = len(dps)
+        G, RJ = int(stacked.g_req.shape[1]), int(stacked.run_req.shape[1])
+        fcap, ecap = min(G, COMPACT_FCAP), min(RJ, COMPACT_ECAP)
+        kf_ms, kf = cuda_ms(
+            lambda: compact_result_stacked(res, [G] * P, [RJ] * P, fcap=fcap, ecap=ecap), reps=5)
+        vin = V.verify_inputs(stacked, res, kf, 0)
+        vargs = (*vin[:18], res.alloc, *vin[19:22], [G] * P)
+        ki_ms, ki = cuda_ms(lambda: verify_round_stacked(*vargs), reps=5)
+        kg_ms, _ = cuda_ms(lambda: KL.lane_slice(stacked, P - 1), reps=3)
+    return dict(stack_ms=ke_ms, stacked_round_ms=kd_ms, solo_round_ms=solo_ms,
+                solo_round_sum_ms=sum(solo_ms), compact_stacked_ms=kf_ms,
+                verify_stacked_ms=ki_ms, lane_slice_ms=kg_ms,
+                iterations=[int(x) for x in res.iterations], state=(st, res, kf, ki, vargs))
+
+
+def _pool_arm(dev, world: dict, fresh_by_cycle: list, parallel: bool) -> dict:
+    """One arm of the pools path: the world loaded, a fill cycle and
+    POOL_STEADY_CYCLES steady cycles of FairSchedulingAlgo.schedule, each
+    submitting its fresh specs (`fresh_by_cycle[c - 1]`, the same in both
+    arms) and committed.  Returns per-cycle decisions and timings."""
+    import torch
+
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch import models as M
+    from armada_tpu_torch.jobdb.job import Job
+    from armada_tpu_torch.models import explain as X
+    from armada_tpu_torch.models import verify as V
+    from armada_tpu_torch.scheduler.pool_serving import (
+        pool_serving_stats, reset_pool_serving_stats,
+    )
+
+    arm = "parallel" if parallel else "serial"
+    os.environ["ARMADA_POOL_PARALLEL"] = "1" if parallel else "0"
+    t0 = time.perf_counter()
+    cfg, jdb, feed, algo, executors, names = pools_world(world, dev)
+    load_s = time.perf_counter() - t0
+    log(f"pools path [{arm}]: 8 pools loaded through the JobDb in {load_s:.1f} s")
+    # host time of applying the decisions back (the txn upserts) and of the
+    # feed overlays that follow each pool's apply, per cycle
+    host = dict(apply_s=0.0, overlay_s=0.0)
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[key] += time.perf_counter() - t
+        return wrapper
+
+    algo._apply_outcome = timed(algo._apply_outcome, "apply_s")
+    feed.overlay = timed(feed.overlay, "overlay_s")
+    reset_pool_serving_stats()
+    M.reset_stack_cache()
+    V.reset_verify_state()
+    X.reset_cadence()
+    vtok = V.arm_default(True)
+    etok = X.arm_default(EXPLAIN_INTERVAL)
+    cycles, decisions = [], []
+    try:
+        kernels.reset_launches()
+        for c in range(1 + POOL_STEADY_CYCLES):
+            txn = jdb.write_txn()
+            if c:
+                fresh = fresh_by_cycle[c - 1]
+                per = POOL_BURST // len(names)
+                txn.upsert([
+                    Job(spec=dataclasses.replace(s, pools=(names[i // per],)), queued=True,
+                        validated=True, pools=(names[i // per],))
+                    for i, s in enumerate(fresh)
+                ])
+            before = pool_serving_stats().snapshot()
+            host.update(apply_s=0.0, overlay_s=0.0)
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            res = algo.schedule(txn, executors, POOL_NOW_NS)
+            torch.cuda.synchronize(dev)
+            sched_s = time.perf_counter() - t1
+            t2 = time.perf_counter()
+            txn.commit()
+            commit_s = time.perf_counter() - t2
+            snap = pool_serving_stats().snapshot()
+            cyc = dict(
+                cycle=c, schedule_s=sched_s, commit_s=commit_s, **host,
+                scheduled=len(res.scheduled), preempted=len(res.preempted),
+                stacked_launches=snap["stacked_launches"] - before["stacked_launches"],
+                stacked_pools=snap["stacked_pools"] - before["stacked_pools"],
+                overlap_ratio=snap["last_overlap_ratio"],
+                pool_round_s={ps.pool: ps.round_s for ps in res.pools},
+                explained=sum(ps.outcome.explain is not None for ps in res.pools),
+            )
+            decisions.append((
+                [(job.id, run.id, run.node_id) for job, run in res.scheduled],
+                sorted(job.id for job, _ in res.preempted),
+                [(ps.pool, len(ps.outcome.scheduled)) for ps in res.pools],
+            ))
+            if parallel:
+                with uncounted():
+                    kk, dps, stacked = _seven_lane_stack(feed, names)
+                    rep = _replay_stack(kk, dps, stacked)
+                cyc.update({k: v for k, v in rep.items() if k != "state"})
+                cyc["replay_state"] = (kk, dps, stacked, rep["state"])
+            cycles.append(cyc)
+            line = (f"pools cycle {c} [{arm}]: schedule {sched_s:.3f} s (of it decisions applied "
+                    f"to the txn {host['apply_s']:.3f} s, feed overlays {host['overlay_s']:.3f} s), "
+                    f"commit {commit_s:.3f} s; scheduled {cyc['scheduled']} preempted {cyc['preempted']}; stacked "
+                    f"launches {cyc['stacked_launches']} covering {cyc['stacked_pools']} pools; "
+                    f"overlap ratio {cyc['overlap_ratio']}; per-pool round s "
+                    + " ".join(f"{p}={s:.3f}" for p, s in cyc["pool_round_s"].items()))
+            log(line)
+            if parallel:
+                log(f"pools cycle {c} [{arm}] kernels: K-D {cyc['stacked_round_ms']:.2f} ms vs "
+                    f"7 solo K-B {cyc['solo_round_sum_ms']:.2f} ms (each "
+                    + " ".join(f"{x:.2f}" for x in cyc["solo_round_ms"])
+                    + f"), K-E {cyc['stack_ms']:.3f} ms, K-F {cyc['compact_stacked_ms']:.4f} ms, "
+                    f"K-G {cyc['lane_slice_ms']:.3f} ms, K-I stacked "
+                    f"{cyc['verify_stacked_ms']:.4f} ms; lane iterations {cyc['iterations']}")
+        launches = dict(kernels.LAUNCHES)
+        snap = pool_serving_stats().snapshot()
+        padded = {n: dict(N=int(feed.devcache_for(n).resident.node_total.shape[0]),
+                          G=int(feed.devcache_for(n).resident.g_req.shape[0]),
+                          RJ=int(feed.devcache_for(n).resident.run_req.shape[0]))
+                  for n in (names[0], names[-1])}
+        if V.verify_state().failures or V.verify_state().rounds < 8 * (1 + POOL_STEADY_CYCLES):
+            raise AssertionError(f"pools path verification: {V.verify_state().snapshot()}")
+    finally:
+        V.disarm_default(vtok)
+        X.disarm_default(etok)
+        os.environ.pop("ARMADA_POOL_PARALLEL", None)
+    log(f"pools path [{arm}] launches: {launches}; pool serving {snap}; padded shapes {padded}")
+    return dict(arm=arm, load_s=load_s, cycles=cycles, decisions=decisions, launches=launches,
+                serving=snap, padded=padded)
+
+
+def pools_path(dev, world: dict, small: dict) -> dict:
+    """The multi-pool serving cycle at full width: FairSchedulingAlgo over
+    an IncrementalProblemFeed attached to a JobDb, 8 pools, with
+    ARMADA_POOL_PARALLEL=1 (shape-matched pools stacked: K-E, K-D, K-F, the
+    stacked K-I, K-G on explain rounds) and =0 (the serial loop), the same
+    decisions on every cycle.  The new kernels are held against their plain
+    versions on small windows first (`small`: check_pool_kernels' report,
+    run before the main path to fail fast), then on a steady cycle's own
+    state here."""
+    import torch
+
+    from armada_tpu_torch.kernels import lanes as KL
+    from armada_tpu_torch.kernels.compact import compact_result_stacked_plain
+    from armada_tpu_torch.kernels.verify import verify_round_stacked_plain
+    from armada_tpu_torch.models.fair_scheduler import schedule_round_stacked_plain
+
+    spec_factory = world["world"][5]
+    fresh_by_cycle = [spec_factory(POOL_BURST, 1e6 + 100.0 * c)
+                      for c in range(1, 1 + POOL_STEADY_CYCLES)]
+    t0 = time.perf_counter()
+    par = _pool_arm(dev, world, fresh_by_cycle, parallel=True)
+    ser = _pool_arm(dev, world, fresh_by_cycle, parallel=False)
+    wall_s = time.perf_counter() - t0
+    for c, (a, b) in enumerate(zip(par["decisions"], ser["decisions"])):
+        if a != b:
+            raise AssertionError(f"pools cycle {c}: the parallel and serial arms decide differently")
+    n_cycles = 1 + POOL_STEADY_CYCLES
+    for cyc in par["cycles"]:
+        if cyc["stacked_launches"] < 1 or cyc["stacked_pools"] != 7:
+            raise AssertionError(f"pools cycle {cyc['cycle']}: no 7-lane stacked launch: {cyc}")
+    if par["serving"]["parallel_cycles"] != n_cycles or ser["serving"]["parallel_cycles"] != 0:
+        raise AssertionError(f"parallel cycles: {par['serving']} / {ser['serving']}")
+    if not all(cyc["scheduled"] > 0 for cyc in par["cycles"]):
+        raise AssertionError("a pools cycle scheduled nothing")
+    launches = par["launches"]
+    for k in ("round_stacked", "stack", "compact_stacked", "verify_stacked", "lane_slice",
+              "round", "compact", "verify", "slab", "fair_shares", "explain"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the pools path")
+    log(f"pools path: {n_cycles} cycles, both arms decide the same; parallel arm stacked 7 "
+        f"pools every cycle")
+
+    # the last steady cycle's stacked kernels against their plain versions,
+    # on the cycle's own state
+    cyc = par["cycles"][-1]
+    kk, dps, stacked, (st, res, kf, ki, vargs) = cyc.pop("replay_state")
+    for other in par["cycles"][:-1]:
+        other.pop("replay_state", None)
+    from armada_tpu_torch.models.fair_scheduler import resolve_round_statics
+
+    with uncounted():
+        kw = dict(kk, max_iterations=resolve_round_statics(stacked))
+        ke_plain_ms, ke_plain = cuda_ms(lambda: KL.stack_plain(dps), reps=1)
+        err_ke = problems_equal(st, ke_plain, "pools: K-E vs torch.stack")
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        kd_plain = schedule_round_stacked_plain(stacked, **kw)
+        torch.cuda.synchronize(dev)
+        kd_plain_ms = (time.perf_counter() - t1) * 1e3
+        err_kd = max_err(res, kd_plain)
+        P = len(dps)
+        G, RJ = int(stacked.g_req.shape[1]), int(stacked.run_req.shape[1])
+        from armada_tpu_torch.models.problem import COMPACT_ECAP, COMPACT_FCAP
+
+        fcap, ecap = min(G, COMPACT_FCAP), min(RJ, COMPACT_ECAP)
+        kf_plain_ms, kf_plain = cuda_ms(
+            lambda: compact_result_stacked_plain(res, [G] * P, [RJ] * P, fcap=fcap, ecap=ecap),
+            reps=1)
+        err_kf = max_err(kf, kf_plain)
+        vplain_args = (*vargs[:18], res.alloc[:, 0], *vargs[19:22])
+        ki_plain_ms, ki_plain = cuda_ms(
+            lambda: verify_round_stacked_plain(vplain_args, vargs[22]), reps=1)
+        err_ki = max_err(ki, ki_plain)
+        if int(ki[:, 1].abs().sum()) != 0:
+            raise AssertionError(f"pools: the stacked verification flags the cycle: {ki}")
+        kg_plain_ms, kg_plain = cuda_ms(lambda: KL.slice_plain(stacked, P - 1), reps=3)
+        err_kg = problems_equal(KL.lane_slice(stacked, P - 1), kg_plain, "pools: K-G vs plain")
+        # one-call library equivalents: torch.stack per field (K-E) and
+        # t[i].clone() per field (K-G) -- exactly the plain versions
+        ke_lib_ms, kg_lib_ms = ke_plain_ms, kg_plain_ms
+        # the copy kernel alone, its descriptors built beforehand, against the
+        # wrapper call (which also builds and checks them on the host)
+        _, ke_descs = KL.stack_plan(list(dps))
+        _, kg_descs = KL.slice_plan(stacked, P - 1)
+        ke_dev_ms, _ = cuda_ms(lambda: KL._copy(ke_descs), reps=10)
+        kg_dev_ms, _ = cuda_ms(lambda: KL._copy(kg_descs), reps=10)
+    log(f"pools path: the last steady cycle's K-E, K-D, K-F, K-I stacked and K-G equal their "
+        f"plain versions on the card (plain K-D {kd_plain_ms:.1f} ms); the copy launch alone, "
+        f"descriptors prebuilt: K-E {ke_dev_ms:.4f} ms, K-G {kg_dev_ms:.4f} ms")
+
+    # bounds: K-D as K-B's per lane (inputs once, outputs once, per
+    # iteration two allocatable rows of every node and the live queues'
+    # cursor windows), summed over the lanes; the copies and K-F / K-I read
+    # and write their bytes once
+    N, R = (int(x) for x in stacked.node_total.shape[1:])
+    prob_bytes = tensor_bytes(*stacked)
+    out_bytes = tensor_bytes(*res)
+    iters = sum(cyc["iterations"])
+    live_q = sum(int((d.q_len > 0).sum()) for d in dps)
+    per_iter = 2 * N * R * 4
+    kd_b = bound_ms(prob_bytes + out_bytes + iters * per_iter + live_q * 16 * 13 * max(cyc["iterations"]),
+                    iters * 2 * N * R * 6)
+    ke_b = bound_ms(2 * prob_bytes, 0)
+    kg_b = bound_ms(2 * prob_bytes // P, 0)
+    kf_b = bound_ms(tensor_bytes(res.g_state, res.run_evicted, res.run_rescheduled, res.slot_gang,
+                                 res.slot_nodes, res.slot_counts) + kf.numel() * 4,
+                    P * (G + 2 * RJ))
+    ki_b = bound_ms(tensor_bytes(*[t for t in vargs[:22]]) + 64 * P, 0)
+    rows = []
+    for name, ms, pms, err, (bms, by), lib in (
+        ("round_stacked", cyc["stacked_round_ms"], kd_plain_ms, err_kd, kd_b, None),
+        ("stack", cyc["stack_ms"], ke_plain_ms, err_ke, ke_b, ke_lib_ms),
+        ("compact_stacked", cyc["compact_stacked_ms"], kf_plain_ms, err_kf, kf_b, None),
+        ("lane_slice", cyc["lane_slice_ms"], kg_plain_ms, err_kg, kg_b, kg_lib_ms),
+        ("verify_stacked", cyc["verify_stacked_ms"], ki_plain_ms, err_ki, ki_b, None),
+    ):
+        src, rep = SOURCES[name]
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
+            max_abs_err=err, equal=err == 0.0, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+            library_ms=lib,
+        ))
+    for arm in (par, ser):
+        arm.pop("decisions")
+    return dict(rows=rows, small=small, parallel=par, serial=ser, wall_s=wall_s,
+                N=N, G=G, RJ=RJ, P=P, stack_device_ms=ke_dev_ms, lane_slice_device_ms=kg_dev_ms)
+
+
 def main() -> int:
     import torch
 
@@ -853,6 +1340,7 @@ def main() -> int:
     from armada_tpu_torch.kernels import build as kbuild
     from armada_tpu_torch.models.synthetic import synthetic_problem, synthetic_world
 
+    t_start = time.perf_counter()
     smi = smi_line()
     log(f"card: {smi}")
     dev = torch.device("cuda", 0)
@@ -864,6 +1352,7 @@ def main() -> int:
 
     report["fair_shares"] = check_fair_shares(dev)
     check_compact(dev)
+    pools_small = check_pool_kernels(dev)
     sp, meta = synthetic_problem(**KB_SYNTH)
     report["round_synthetic"] = check_round("synthetic_problem", sp, meta, dev)
     mp, mctx = world_problem(KB_MARKET)
@@ -899,10 +1388,14 @@ def main() -> int:
     report.update(mp_report)
     inc = incremental_path(dev, world, main_outcome)
     report["incremental"] = inc
+    pools = pools_path(dev, world, pools_small)
+    report["pools"] = pools
+    report["total_s"] = time.perf_counter() - t_start
+    log(f"chip_smoke: {report['total_s']:.1f} s in all, the kernels' build included")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
-    print(json.dumps({"kernels": mp_report["rows"] + inc["rows"]}))
+    print(json.dumps({"kernels": mp_report["rows"] + inc["rows"] + pools["rows"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

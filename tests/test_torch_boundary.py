@@ -160,3 +160,37 @@ def test_incremental_kernels_match_plain_on_the_card():
                                queued_jobs=specs, running=running, device=dev)
     report = chip_smoke.incremental_path(dev, dict(world=world), out)
     assert report["checks"]["kh_scatter"] >= chip_smoke.STEADY_CYCLES
+
+
+@pytest.mark.cuda
+def test_pool_kernels_match_plain_on_the_card():
+    """K-D, K-E, K-F, K-G and the stacked K-I (and K-A with a lane axis)
+    against their plain versions, on windows of 3 and 4 lanes.  Run on a
+    machine with a card:
+    `python -m pytest --noconftest -m cuda tests/test_torch_boundary.py`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke
+
+    report = chip_smoke.check_pool_kernels(torch.device("cuda", 0))
+    assert min(report["evict"]["rescheduled"]) > 0
+
+
+def test_serving_subpackages_import_no_jax():
+    """The port's job database and scheduling cycle (armada_tpu_torch.jobdb,
+    armada_tpu_torch.scheduler) are covered by the import check: every
+    module of both imports without jax or the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import armada_tpu_torch.jobdb, armada_tpu_torch.scheduler\n"
+        "names = []\n"
+        "for pkg in (armada_tpu_torch.jobdb, armada_tpu_torch.scheduler):\n"
+        "    names += [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "want = {'armada_tpu_torch.jobdb.jobdb', 'armada_tpu_torch.jobdb.job',\n"
+        "        'armada_tpu_torch.scheduler.algo', 'armada_tpu_torch.scheduler.incremental_algo',\n"
+        "        'armada_tpu_torch.scheduler.pool_serving'}\n"
+        "assert want <= set(names), names\n" + _FORBIDDEN
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
