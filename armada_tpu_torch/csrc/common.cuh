@@ -16,7 +16,9 @@
 
 #define ARMADA_INF 3.0e38f
 #define ARMADA_BIGI 2147483647
+#ifndef ARMADA_BLOCK
 #define ARMADA_BLOCK 1024
+#endif
 #define ARMADA_WARPS (ARMADA_BLOCK / 32)
 
 // Return the first launch error of a C entry point.

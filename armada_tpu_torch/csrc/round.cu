@@ -2,10 +2,13 @@
 //
 // Replaces the JAX package's models/fair_scheduler.py `_schedule_round_jit`
 // (with `_make_place_iteration`, `_phase_b`, `_move_runs_to_evicted`,
-// `_fit_row`, and ops/fit.py, ops/packing.py, ops/fairness.py inlined), at the
-// single-commit, uncached loop shape (commit_k=1, cache_slots=0, batch_k=1,
-// unroll=1).  Plain version: armada_tpu_torch/models/fair_scheduler.py
-// `schedule_round_plain`, which this file follows step by step.
+// `_fit_row`, and ops/fit.py, ops/packing.py, ops/fairness.py inlined), at
+// every decision-bearing loop shape of the uncached body (cache_slots=0,
+// batch_k=1, unroll=1): the node-type bias (TR > 1), prefer-large ordering,
+// and the multi-commit extension at any commit_k up to MAX_COMMIT_K (K10,
+// `_make_place_iteration` fair_scheduler.py:773-1016).  Plain version:
+// armada_tpu_torch/models/fair_scheduler.py `schedule_round_plain` and
+// `_extension`, which this file follows step by step.
 //
 // What bounds it on this card.  The placement loop is sequential: up to
 // 2G + Q + 8 iterations, each deciding one gang (or retiring queue heads).
@@ -23,6 +26,20 @@
 // memory and alloc[P1, N, R] in global memory (it fits in L2 at the
 // reference scale); phase B's fixed point is a second single-block kernel.
 // No host synchronisation between the launches.
+//
+// The multi-commit extension (commit_k = K > 1) runs inside the same block
+// after the head's commit: the K - 1 next queues by order key (successive
+// warp argmins over (key, queue), which is the stable top-K), their checks
+// (eligibility, caps in commit order, queue order) on one thread each, then
+// ONE sweep over the nodes for all picks at once -- each thread keeps a
+// running (clean-first, score, index) minimum per pick in registers, packed
+// into one 64-bit key, and the block reduces the picks together -- then the
+// [E x E] conflict table on E^2 threads and the certified prefix's commit on
+// thread 0.  So an iteration costs about one head iteration plus one node
+// sweep, whatever K is (up to EXT_CHUNK picks per sweep).  The sweep is
+// compute-bound: every pick's static fit, dynamic fit and packing score at
+// every node (on an H100 80GB HBM3 at 700 W, K = 8 on chip_smoke.py's 1M-job
+// world: ~435 us a trip against ~122 us for a single-commit trip; PERF.md).
 //
 // K-D, the stacked round: P pools whose problems match in every shape run as
 // ONE sequence of launches.  Replaces `_schedule_round_stacked_jit`
@@ -43,6 +60,23 @@
 
 #define SKIP_WINDOW 16
 #define MAX_R 8
+// The widest multi-commit the loop takes (the wrapper refuses more):
+// MAX_EXT = MAX_COMMIT_K - 1 extension picks per iteration, their tables in
+// shared memory; one sweep over the nodes serves EXT_CHUNK picks.
+#define MAX_COMMIT_K 16
+#define MAX_EXT (MAX_COMMIT_K - 1)
+#define EXT_CHUNK 8
+// Threads of the multi-commit instantiation: 640 leave it 96 registers a
+// thread, which its node sweep needs without spilling (768 threads, 80
+// registers, spill; ptxas -v, sm_90a).
+#ifndef EXT_BLOCK
+#define EXT_BLOCK 640
+#endif
+static_assert(EXT_BLOCK <= ARMADA_BLOCK && EXT_BLOCK % 32 == 0,
+              "the per-warp tables are sized for ARMADA_BLOCK threads");
+// Prefer-large ordering: the offset that lifts over-budget queues' keys
+// (fair_scheduler.py _PL_OVER), added in f32.
+#define PL_OVER 1.0e30f
 
 // Everything the round reads and writes.  Mirrors SchedulingProblem plus the
 // state buffers the wrapper allocates (armada_tpu_torch/kernels/round.py).
@@ -122,8 +156,15 @@ struct RoundArgs {
     float* cost;               // [RJ] phase B scratch
     int* scal;                 // [8]: n_slots, iterations, termination,
                                //      sched_count, done, kernel_iters
-    // shapes and statics; BR = ban rows, P = lanes
+    // node-type bias, prefer-large and multi-commit inputs
+    const float* type_bias;    // [TR, T]
+    const int* key_type_row;   // [K]
+    const int* g_queue;        // [G]
+    float* okey;               // [Q] scratch: the iteration's order keys
+    int* q_nskip;              // [Q] scratch: the iteration's cursor skips
+    // shapes and statics; BR = ban rows, P = lanes, TR = bias rows
     int N, R, G, Q, RJ, K, T, C, P1, S, W, max_iter, BR, P;
+    int TR, prefer_large, commit_k;
 };
 
 // scal is [8, P]: slot k of lane l at scal[k * P + l] (a contiguous [P]
@@ -206,6 +247,11 @@ static __device__ __forceinline__ RoundArgs lane_of(RoundArgs a, long long l) {
     a.rmin += l * N;
     a.cost += l * RJ;
     a.scal += l;
+    a.type_bias += l * (long long)a.TR * a.T;
+    a.key_type_row += l * a.K;
+    a.g_queue += l * G;
+    a.okey += l * Q;
+    a.q_nskip += l * Q;
     return a;
 }
 
@@ -304,16 +350,103 @@ __global__ void gstate_init_kernel(RoundArgs a0) {
 
 // --- the placement loop ----------------------------------------------------------
 
+// A queue's place in the pick order: the lower key first, then (prefer-large
+// only) the larger gang, then the lower queue.  `sz` is 0 for every queue
+// outside prefer-large, which leaves the plain (key, queue) argmin.
+struct QPick {
+    float v, sz;
+    int q, g;
+};
+
+static __device__ __forceinline__ bool qpick_less(const QPick& a, const QPick& b) {
+    if (a.v != b.v) return a.v < b.v;
+    if (a.sz != b.sz) return a.sz > b.sz;
+    return a.q < b.q;
+}
+
+static __device__ __forceinline__ QPick qpick_shfl(QPick a, int off) {
+    QPick o;
+    o.v = __shfl_down_sync(0xffffffffu, a.v, off);
+    o.sz = __shfl_down_sync(0xffffffffu, a.sz, off);
+    o.q = __shfl_down_sync(0xffffffffu, a.q, off);
+    o.g = __shfl_down_sync(0xffffffffu, a.g, off);
+    return o;
+}
+
+// Block-wide queue pick; every thread gets the result.  `sh` holds
+// ARMADA_WARPS entries plus one for the broadcast.
+static __device__ QPick block_qpick(QPick a, QPick* sh) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    for (int off = 16; off > 0; off >>= 1) {
+        const QPick o = qpick_shfl(a, off);
+        if (qpick_less(o, a)) a = o;
+    }
+    if (lane == 0) sh[warp] = a;
+    __syncthreads();
+    if (warp == 0) {
+        const int nw = (blockDim.x + 31) >> 5;
+        QPick b = lane < nw ? sh[lane] : QPick{ARMADA_INF, -ARMADA_INF, ARMADA_BIGI, 0};
+        for (int off = 16; off > 0; off >>= 1) {
+            const QPick o = qpick_shfl(b, off);
+            if (qpick_less(o, b)) b = o;
+        }
+        if (lane == 0) sh[ARMADA_WARPS] = b;
+    }
+    __syncthreads();
+    const QPick r = sh[ARMADA_WARPS];
+    __syncthreads();
+    return r;
+}
+
+// The request fits in allocatable row a[R] (fair_scheduler.py _fit_row,
+// min_r floor(a_r / req_r) >= 1 over req_r > 0).  For req_r > 0,
+// floor(RN(a_r / req_r)) >= 1 exactly when a_r >= req_r: RN(a/r) >= 1 when
+// a >= r, and when a < r the quotient is at most 1 - 2^-24, which rounds
+// below 1.  So the comparison decides as the division does.
+static __device__ __forceinline__ bool fits_row(const float* a, const float* req, int R) {
+    bool ok = true;
+    for (int r = 0; r < R; ++r) ok &= !(req[r] > 0.0f) || a[r] >= req[r];
+    return ok;
+}
+
+// One extension pick's node candidate as a 64-bit key whose unsigned order
+// is the JAX package's choice: clean-level fits (prio 0) before own-level
+// fits (prio 1), then the lower packing score, then the lower node index.
+static __device__ __forceinline__ unsigned long long pick_key(unsigned prio, float s, int n) {
+    unsigned u = __float_as_uint(s == 0.0f ? 0.0f : s);  // -0 ties +0
+    u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+    return ((unsigned long long)prio << 63) | ((unsigned long long)u << 31) |
+           (unsigned long long)(unsigned)n;
+}
+
 struct LoopShared {
     int nlive;
-    int done, iterations, termination, cursor, sched_count, new_blocked;
-    int advanced;
+    int done, iterations, kiters, termination, cursor, sched_count, new_blocked;
+    int advanced, hidden;
     // the iteration's pick
-    int any_q, qstar, g, card, level, key, pc, run, is_ev, pinned;
-    int attempt, gate_global, gate_queue, hit_burst, float_ok;
+    int any_q, qstar, g, card, level, key, pc, run, is_ev, pinned, trow;
+    int attempt, gate_global, gate_queue, hit_burst, float_ok, placed, n_ext;
     float req[MAX_R], req_node[MAX_R], req_tot[MAX_R], req_float[MAX_R];
     // the fit
     int fit_feasible;
+};
+
+// The multi-commit extension's tables (fair_scheduler.py:773-1016): pick e
+// is the e-th queue after the head in order-key order; k indexes the batch
+// queues of the order check (k = 0 the head, k = e + 1 pick e).
+struct ExtShared {
+    int m;     // picks whose order key is below INF
+    int m_ok;  // the prefix that passed eligibility, caps and queue order
+    int q[MAX_EXT], g[MAX_EXT], level[MAX_EXT], key[MAX_EXT], pc[MAX_EXT], elig[MAX_EXT];
+    float keyv[MAX_EXT];
+    float req[MAX_EXT][MAX_R], reqn[MAX_EXT][MAX_R], flt[MAX_EXT][MAX_R];
+    int qk[MAX_COMMIT_K];
+    float nk[MAX_COMMIT_K];
+    int node[MAX_EXT], lvl_sel[MAX_EXT], found[MAX_EXT];
+    u8 flip0[MAX_EXT][MAX_EXT], adj_fit[MAX_EXT][MAX_EXT];
+    float adj_score[MAX_EXT][MAX_EXT];
+    unsigned long long red[ARMADA_WARPS][EXT_CHUNK];
 };
 
 __device__ __forceinline__ int gq_at(const RoundArgs& a, long long idx) {
@@ -322,14 +455,327 @@ __device__ __forceinline__ int gq_at(const RoundArgs& a, long long idx) {
     return a.gq_gang[idx];
 }
 
+// itemSize of prefer-large: the gang's unweighted DRF cost times its
+// queue's weight.
+static __device__ __forceinline__ float gang_size(const RoundArgs& a, int g) {
+    float x[MAX_R];
+    const float cardf = (float)a.g_card[g];
+    for (int r = 0; r < a.R; ++r) x[r] = __fmul_rn(a.g_req[(long long)g * a.R + r], cardf);
+    return __fmul_rn(drf_unweighted(x, a.total_pool, a.drf_mult, a.R), a.q_weight[a.g_queue[g]]);
+}
+
+// The extension: after the head placed in a non-market round with no
+// queue's window exhausted, commit the longest prefix of the next
+// commit_k - 1 queue heads that provably equals the next sequential steps.
+// Every thread of the block calls it.  State is the head's post-commit one.
+static __device__ void extension(const RoundArgs& a, LoopShared& sh, ExtShared& ext) {
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int R = a.R, N = a.N, W = a.W;
+    const long long NR = (long long)N * R;
+    const int E = a.commit_k - 1;
+
+    // (1) the next E queues by (order key, queue) after the head: successive
+    // warp-wide argmins strictly after the previous pick, which is the
+    // stable top-K; a key that is not below INF ends the batch
+    if (warp == 0) {
+        float pv = a.okey[sh.qstar];
+        int pq = sh.qstar, m = 0;
+        for (int e = 0; e < E; ++e) {
+            float bv = ARMADA_INF;
+            int bq = ARMADA_BIGI;
+            for (int li = lane; li < sh.nlive; li += 32) {
+                const int q = a.live_q[li];
+                const float v = a.okey[q];
+                if ((v > pv || (v == pv && q > pq)) && argmin_less(v, q, bv, bq)) {
+                    bv = v;
+                    bq = q;
+                }
+            }
+            for (int off = 16; off > 0; off >>= 1) {
+                const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+                const int oq = __shfl_xor_sync(0xffffffffu, bq, off);
+                if (argmin_less(ov, oq, bv, bq)) {
+                    bv = ov;
+                    bq = oq;
+                }
+            }
+            if (!(bv < ARMADA_INF)) break;
+            if (lane == 0) {
+                ext.q[e] = bq;
+                ext.keyv[e] = bv;
+            }
+            pv = bv;
+            pq = bq;
+            m = e + 1;
+        }
+        if (lane == 0) ext.m = m;
+    }
+    __syncthreads();
+    const int m = ext.m;
+
+    // (3) each pick's head gang and eligibility: unbanned, non-evictee,
+    // type-insensitive singles
+    if (tid < m) {
+        const int e = tid, q = ext.q[e];
+        const int g = gq_at(a, (long long)a.q_start[q] + a.q_head[q]);
+        const int card = a.g_card[g], key = a.g_key[g];
+        ext.g[e] = g;
+        ext.level[e] = a.g_level[g];
+        ext.key[e] = key;
+        ext.pc[e] = a.g_pc[g];
+        bool elig = card == 1 && a.g_run[g] < 0 && a.g_ban_row[g] == 0;
+        if (a.TR > 1 && key >= 0 && a.key_type_row[key] != 0) elig = false;
+        ext.elig[e] = elig;
+        for (int r = 0; r < R; ++r) {
+            const float req = a.g_req[(long long)g * R + r];
+            ext.req[e][r] = req;
+            ext.reqn[e][r] = __fmul_rn(req, a.node_axes[r]);
+            ext.flt[e][r] = __fmul_rn(__fmul_rn(req, __fsub_rn(1.0f, a.node_axes[r])), (float)card);
+        }
+    }
+    // (5) the next candidate of batch queue k (the first undecided window
+    // entry past its head) and its proposed cost after queue k commits; a
+    // window that ends before the queue's tail proves nothing (-INF)
+    if (tid <= m && tid < MAX_COMMIT_K) {
+        const int k = tid;
+        const int q = k == 0 ? sh.qstar : ext.q[k - 1];
+        const int len = a.q_len[q], start = a.q_start[q];
+        const int headn = a.q_head[q], nsk = a.q_nskip[q];
+        const int head0 = headn - nsk;
+        int npos = SKIP_WINDOW, gnext = 0;
+        for (int i = nsk + 1; i < SKIP_WINDOW; ++i) {
+            const int off = head0 + i;
+            if (off >= len) break;
+            const int gg = gq_at(a, (long long)start + off);
+            const int kk = a.g_key[gg];
+            if (!(a.g_state[gg] != 0 || (kk >= 0 && a.key_bad[kk]))) {
+                npos = i;
+                gnext = gg;
+                break;
+            }
+        }
+        float nkv;
+        if (npos < SKIP_WINDOW) {
+            const bool next_new = a.g_run[gnext] < 0;
+            const bool allowed =
+                !(next_new && (sh.new_blocked || a.q_killed[q])) && a.q_weight[q] > 0.0f;
+            if (allowed) {
+                const int own = gq_at(a, (long long)start + headn);  // queue k's committed gang
+                const float cardf = (float)a.g_card[gnext];
+                float x[MAX_R];
+                for (int r = 0; r < R; ++r) {
+                    const float o = k == 0 ? 0.0f : a.g_req[(long long)own * R + r];
+                    x[r] = __fadd_rn(__fadd_rn(__fadd_rn(a.q_alloc[q * R + r], o), a.q_penalty[q * R + r]),
+                                     __fmul_rn(a.g_req[(long long)gnext * R + r], cardf));
+                }
+                nkv = drf_weighted(x, a.total_pool, a.drf_mult, a.q_weight[q], R);
+            } else {
+                nkv = ARMADA_INF;
+            }
+        } else {
+            nkv = head0 + SKIP_WINDOW - 1 >= len ? ARMADA_INF : -ARMADA_INF;
+        }
+        ext.qk[k] = q;
+        ext.nk[k] = nkv;
+    }
+    __syncthreads();
+
+    // (4) caps, burst, floating capacity and the iteration bound in commit
+    // order, with the sequential f32 accumulation; (5) no earlier batch
+    // queue's next candidate precedes the pick
+    if (tid == 0) {
+        float run_res[MAX_R], run_flt[MAX_R];
+        for (int r = 0; r < R; ++r) {
+            run_res[r] = a.sched_res[r];
+            run_flt[r] = a.float_used[r];
+        }
+        int mo = 0;
+        for (int e = 0; e < m; ++e) {
+            const int q = ext.q[e], pc = ext.pc[e];
+            bool ok = ext.elig[e] != 0;
+            for (int r = 0; r < R; ++r) {
+                run_res[r] = __fadd_rn(run_res[r], ext.req[e][r]);
+                run_flt[r] = __fadd_rn(run_flt[r], ext.flt[e][r]);
+                ok &= run_res[r] <= a.round_cap[r];
+                ok &= run_flt[r] <= __fadd_rn(a.float_total[r], 1e-3f);
+                ok &= __fadd_rn(a.q_alloc_pc[((long long)q * a.C + pc) * R + r], ext.req[e][r]) <=
+                      a.pc_queue_cap[pc * R + r];
+            }
+            ok &= (long long)sh.sched_count + e + 1 <= *a.global_burst;
+            ok &= (long long)sh.iterations + 1 + e < a.max_iter;
+            ok &= (long long)a.q_sched[q] + 1 <= a.perq_burst[q];
+            const float kv = ext.keyv[e];
+            for (int k = 0; k <= e; ++k) ok &= ext.nk[k] > kv || (ext.nk[k] == kv && ext.qk[k] > q);
+            if (!ok) break;
+            mo = e + 1;
+        }
+        ext.m_ok = mo;
+    }
+    __syncthreads();
+    const int mo = ext.m_ok;
+    if (mo == 0) return;
+
+    // (6) each pick's node against the post-head state: one sweep over the
+    // nodes per EXT_CHUNK picks, a running minimum of pick_key per pick
+    for (int c0 = 0; c0 < mo; c0 += EXT_CHUNK) {
+        const int cn = min(EXT_CHUNK, mo - c0);
+        unsigned long long best[EXT_CHUNK];
+#pragma unroll
+        for (int i = 0; i < EXT_CHUNK; ++i) best[i] = ~0ull;
+        for (int n = tid; n < N; n += blockDim.x) {
+            if (!a.node_ok[n]) continue;
+            const int ty = a.node_type[n];
+            const float* row0 = a.alloc + (long long)n * R;
+            float s0 = 0.0f;
+            bool have_s0 = false;
+#pragma unroll
+            for (int i = 0; i < EXT_CHUNK; ++i) {
+                if (i < cn) {
+                    const int e = c0 + i;
+                    const int key = ext.key[e];
+                    if (key < 0 || a.compat[(long long)key * a.T + ty]) {
+                        if (fits_row(row0, ext.reqn[e], R)) {
+                            if (!have_s0) {
+                                s0 = packing_score(row0, a.inv_scale, R);
+                                have_s0 = true;
+                            }
+                            const unsigned long long c = pick_key(0u, s0, n);
+                            if (c < best[i]) best[i] = c;
+                        } else {
+                            const float* rowl = a.alloc + (long long)ext.level[e] * NR + (long long)n * R;
+                            if (fits_row(rowl, ext.reqn[e], R)) {
+                                const unsigned long long c =
+                                    pick_key(1u, packing_score(rowl, a.inv_scale, R), n);
+                                if (c < best[i]) best[i] = c;
+                            }
+                        }
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < EXT_CHUNK; ++i) {
+            unsigned long long v = best[i];
+            for (int off = 16; off > 0; off >>= 1) {
+                const unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
+                if (o < v) v = o;
+            }
+            if (lane == 0) ext.red[warp][i] = v;
+        }
+        __syncthreads();
+        if (tid < cn) {
+            unsigned long long v = ~0ull;
+            const int nw = (blockDim.x + 31) >> 5;
+            for (int w = 0; w < nw; ++w)
+                if (ext.red[w][tid] < v) v = ext.red[w][tid];
+            const int e = c0 + tid;
+            const bool found = v != ~0ull;
+            ext.found[e] = found;
+            ext.node[e] = found ? (int)(v & 0x7fffffffull) : 0;
+            ext.lvl_sel[e] = found && (v >> 63) ? ext.level[e] : 0;
+        }
+        __syncthreads();
+    }
+
+    // (7) pick e against the cumulative deltas of the earlier picks at pick
+    // j's node: its clean fit there (flip0), and its fit and packing score
+    // at its selection level there (adj_fit, adj_score)
+    for (int t = tid; t < mo * mo; t += blockDim.x) {
+        const int e = t / mo, j = t % mo;
+        if (j > e) continue;
+        const int nj = ext.node[j], key = ext.key[e], ls = ext.lvl_sel[e];
+        const bool okn =
+            (key < 0 || a.compat[(long long)key * a.T + a.node_type[nj]]) && a.node_ok[nj];
+        const float* r0 = a.alloc + (long long)nj * R;
+        const float* rs = a.alloc + (long long)ls * NR + (long long)nj * R;
+        float c0[MAX_R], cs[MAX_R];
+        for (int r = 0; r < R; ++r) c0[r] = cs[r] = 0.0f;
+        for (int k = 0; k < e; ++k) {
+            if (ext.node[k] != nj) continue;
+            for (int r = 0; r < R; ++r) c0[r] = __fadd_rn(c0[r], ext.reqn[k][r]);
+            if (ls <= ext.level[k])
+                for (int r = 0; r < R; ++r) cs[r] = __fadd_rn(cs[r], ext.reqn[k][r]);
+        }
+        float adj0[MAX_R], adjs[MAX_R];
+        for (int r = 0; r < R; ++r) {
+            adj0[r] = __fsub_rn(r0[r], c0[r]);
+            adjs[r] = __fsub_rn(rs[r], cs[r]);
+        }
+        ext.flip0[e][j] = okn && fits_row(r0, ext.reqn[e], R) && !fits_row(adj0, ext.reqn[e], R);
+        ext.adj_fit[e][j] = okn && fits_row(adjs, ext.reqn[e], R);
+        ext.adj_score[e][j] = packing_score(adjs, a.inv_scale, R);
+    }
+    __syncthreads();
+
+    // (8) the certified prefix, and (9) its commit in pick order
+    if (tid == 0) {
+        int n_ext = 0;
+        for (int e = 0; e < mo; ++e) {
+            if (!ext.found[e] || !ext.adj_fit[e][e]) break;
+            const float ss = ext.adj_score[e][e];
+            const int ne = ext.node[e];
+            bool ok = true;
+            for (int j = 0; j < e && ok; ++j) {
+                bool conflict = ext.flip0[e][j] != 0;
+                if (ext.node[j] != ne) {
+                    const float sj = ext.adj_score[e][j];
+                    conflict |= ext.adj_fit[e][j] && (sj < ss || (sj == ss && ext.node[j] < ne));
+                }
+                ok = !conflict;
+            }
+            if (!ok) break;
+            n_ext = e + 1;
+        }
+        for (int e = 0; e < n_ext; ++e) {
+            const int node = ext.node[e], q = ext.q[e], g = ext.g[e], pc = ext.pc[e];
+            for (int l = 0; l <= ext.level[e] && l < a.P1; ++l)
+                for (int r = 0; r < R; ++r) {
+                    float* p = a.alloc + (long long)l * NR + (long long)node * R + r;
+                    *p = __fsub_rn(*p, ext.reqn[e][r]);
+                }
+            for (int r = 0; r < R; ++r) {
+                const float req = ext.req[e][r];
+                a.q_alloc[q * R + r] = __fadd_rn(a.q_alloc[q * R + r], req);
+                float* pp = a.q_alloc_pc + ((long long)q * a.C + pc) * R + r;
+                *pp = __fadd_rn(*pp, req);
+                a.sched_res[r] = __fadd_rn(a.sched_res[r], req);
+                a.float_used[r] = __fadd_rn(a.float_used[r], ext.flt[e][r]);
+                a.spot_res[r] = __fadd_rn(a.spot_res[r], req);
+            }
+            a.q_sched[q] += 1;
+            a.g_state[g] = 1;
+            const int cur = sh.cursor + e;
+            if (cur < a.S) {
+                a.slot_gang[cur] = g;
+                for (int w = 0; w < W; ++w) {
+                    a.slot_nodes[(long long)cur * W + w] = w == 0 ? node : N;
+                    a.slot_counts[(long long)cur * W + w] = w == 0 ? 1 : 0;
+                }
+            }
+        }
+        sh.cursor += n_ext;
+        sh.sched_count += n_ext;
+        sh.n_ext = n_ext;
+    }
+}
+
 // nodes_w / counts_w: i32[P, W] rows holding the (node, count) spread of
-// the gang being placed; node N marks an unused entry.
-__global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, int* nodes_w,
-                                                                  int* counts_w) {
+// the gang being placed; node N marks an unused entry.  One instantiation
+// per loop shape, so that each carries only its own branches' registers:
+// EXT the multi-commit extension (commit_k > 1; it runs EXT_BLOCK threads,
+// so that the node sweep keeps its running minima in registers without
+// spilling), PL prefer-large ordering (never with EXT), HET the node-type
+// bias (TR > 1).
+template <bool EXT, bool PL, bool HET>
+__global__ void __launch_bounds__(EXT ? EXT_BLOCK : ARMADA_BLOCK)
+    place_loop_kernel(RoundArgs a0, int* nodes_w, int* counts_w) {
     LANE_ARGS;
     nodes_w += (long long)blockIdx.y * a.W;
     counts_w += (long long)blockIdx.y * a.W;
     __shared__ LoopShared sh;
+    __shared__ ExtShared ext;
+    __shared__ QPick redq[ARMADA_WARPS + 1];
     __shared__ ArgMin red[ARMADA_WARPS + 1];
     __shared__ long long redl[ARMADA_WARPS + 1];
     const int tid = threadIdx.x;
@@ -344,6 +790,7 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, 
         sh.nlive = n;
         sh.done = 0;
         sh.iterations = 0;
+        sh.kiters = 0;
         sh.termination = 0;
         sh.cursor = 0;
         sh.sched_count = 0;
@@ -364,8 +811,8 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, 
 
     while (!sh.done && sh.iterations < a.max_iter) {
         // --- cursors, candidates and the queue pick -----------------------------
-        ArgMin best{ARMADA_INF, ARMADA_BIGI, 0};
-        bool any_has = false, adv = false;
+        QPick best{ARMADA_INF, -ARMADA_INF, ARMADA_BIGI, 0};
+        bool any_has = false, adv = false, hid = false;  // hid: EXT only
         for (int li = tid; li < sh.nlive; li += blockDim.x) {
             const int q = a.live_q[li];
             const int head = a.q_head[q], len = a.q_len[q], start = a.q_start[q];
@@ -381,13 +828,17 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, 
             }
             a.q_head[q] = head + nskip;
             adv |= nskip > 0;
+            if (EXT) {
+                a.q_nskip[q] = nskip;
+                hid |= nskip >= SKIP_WINDOW && head + nskip < len;
+            }
             const bool visible = nskip < SKIP_WINDOW && head + nskip < len;
             const int cand = visible ? gq_at(a, (long long)start + head + nskip) : 0;
             const bool cand_new = a.g_run[cand] < 0;
             const bool has = visible && !(cand_new && (sh.new_blocked || a.q_killed[q])) &&
                              a.q_weight[q] > 0.0f;
+            float key = ARMADA_INF;
             if (has) {
-                float key;
                 if (market) {
                     key = -a.g_price[cand];
                 } else {
@@ -397,25 +848,41 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, 
                         x[r] = __fadd_rn(__fadd_rn(a.q_alloc[q * R + r], a.q_penalty[q * R + r]),
                                          __fmul_rn(a.g_req[(long long)cand * R + r], cardf));
                     key = drf_weighted(x, a.total_pool, a.drf_mult, a.q_weight[q], R);
+                    if (PL) {
+                        // within budget: the current cost; over budget:
+                        // PL_OVER + the proposed cost, rounded in f32
+                        const float w = a.q_weight[q];
+                        const float budget = w > 0.0f ? __fdiv_rn(a.dcafs[q], fmaxf(w, 1e-9f)) : 0.0f;
+                        if (key <= budget) {
+                            for (int r = 0; r < R; ++r)
+                                x[r] = __fadd_rn(a.q_alloc[q * R + r], a.q_penalty[q * R + r]);
+                            key = drf_weighted(x, a.total_pool, a.drf_mult, w, R);
+                        } else {
+                            key = __fadd_rn(PL_OVER, key);
+                        }
+                    }
                 }
-                ArgMin c{key, q, cand};
-                best = argmin_pick(best, c);
+                const QPick c{key, PL ? gang_size(a, cand) : 0.0f, q, cand};
+                if (qpick_less(c, best)) best = c;
                 any_has = true;
             }
+            if (EXT) a.okey[q] = key;
         }
         const bool any_q = block_any(any_has);
         const bool advanced = block_any(adv);
-        best = block_argmin(best, red);
+        const bool hidden = EXT && block_any(hid);
+        best = block_qpick(best, redq);
 
         if (tid == 0) {
             sh.any_q = any_q;
             sh.advanced = advanced;
+            sh.hidden = hidden;
             sh.attempt = 0;
             sh.gate_global = 0;
             sh.gate_queue = 0;
             sh.hit_burst = 0;
             if (any_q) {
-                const int qstar = best.i, g = best.extra;
+                const int qstar = best.q, g = best.g;
                 sh.qstar = qstar;
                 sh.g = g;
                 const int card = a.g_card[g];
@@ -423,6 +890,7 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, 
                 sh.card = card;
                 sh.level = a.g_level[g];
                 sh.key = a.g_key[g];
+                sh.trow = HET && sh.key >= 0 ? a.key_type_row[sh.key] : 0;
                 sh.pc = a.g_pc[g];
                 const int run = a.g_run[g];
                 sh.run = run;
@@ -487,6 +955,9 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, 
             } else {
                 const int key = sh.key;
                 const u8* ban = a.ban_mask + (long long)a.g_ban_row[sh.g] * N;
+                // the node-type bias row of the gang's key: one f32 add after
+                // the packing-score chain (TR > 1 only)
+                const float* bias = HET ? a.type_bias + (long long)sh.trow * a.T : nullptr;
                 const float* al0 = a.alloc;
                 const float* all = a.alloc + (long long)level * NR;
                 ArgMin bc{ARMADA_INF, ARMADA_BIGI, 0}, bl{ARMADA_INF, ARMADA_BIGI, 0};
@@ -501,6 +972,11 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, 
                         cl = min(member_capacity(all + (long long)n * R, sh.req_node, R), card);
                         s0 = packing_score(al0 + (long long)n * R, a.inv_scale, R);
                         s1 = packing_score(all + (long long)n * R, a.inv_scale, R);
+                        if (bias) {
+                            const float b = bias[a.node_type[n]];
+                            s0 = __fadd_rn(s0, b);
+                            s1 = __fadd_rn(s1, b);
+                        }
                     }
                     sc += cc;
                     sl += cl;
@@ -640,7 +1116,18 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, 
                 if (sh.termination == 0) sh.termination = sh.hit_burst ? 1 : 2;
             }
             sh.done = !sh.any_q && !sh.advanced;
-            sh.iterations += 1;
+            sh.placed = placed;
+            sh.n_ext = 0;
+        }
+        __syncthreads();
+        // --- the multi-commit extension (K10) ---------------------------------------
+        if (EXT && sh.placed && !market && !sh.hidden) {
+            extension(a, sh, ext);
+            __syncthreads();
+        }
+        if (tid == 0) {
+            sh.iterations += 1 + sh.n_ext;
+            sh.kiters += 1;
         }
         __syncthreads();
     }
@@ -652,7 +1139,7 @@ __global__ void __launch_bounds__(ARMADA_BLOCK) place_loop_kernel(RoundArgs a0, 
         a.scal[SC_TERM * a.P] = term;
         a.scal[SC_SCHED * a.P] = sh.sched_count;
         a.scal[SC_DONE * a.P] = sh.done;
-        a.scal[SC_KITERS * a.P] = sh.iterations;
+        a.scal[SC_KITERS * a.P] = sh.kiters;
     }
 }
 
@@ -778,7 +1265,25 @@ static dim3 grid_for(long long n, int lanes) {
     return dim3((unsigned)b, (unsigned)lanes);
 }
 
-static bool args_ok(const RoundArgs& a) { return a.R <= MAX_R && a.P >= 1 && a.P <= 65535; }
+static bool args_ok(const RoundArgs& a) {
+    return a.R <= MAX_R && a.P >= 1 && a.P <= 65535 && a.TR >= 1 && a.commit_k >= 1 &&
+           a.commit_k <= MAX_COMMIT_K && !(a.prefer_large && a.commit_k > 1);
+}
+
+// The placement loop's instantiation for the round's loop shape.
+static void launch_place_loop(const RoundArgs& a, dim3 grid, int* nodes_w, int* counts_w,
+                              cudaStream_t stream) {
+    typedef void (*Loop)(RoundArgs, int*, int*);
+    const bool het = a.TR > 1;
+    Loop k;
+    if (a.commit_k > 1)
+        k = het ? place_loop_kernel<true, false, true> : place_loop_kernel<true, false, false>;
+    else if (a.prefer_large)
+        k = het ? place_loop_kernel<false, true, true> : place_loop_kernel<false, true, false>;
+    else
+        k = het ? place_loop_kernel<false, false, true> : place_loop_kernel<false, false, false>;
+    ARMADA_LAUNCH(k, grid, a.commit_k > 1 ? EXT_BLOCK : ARMADA_BLOCK, stream)(a, nodes_w, counts_w);
+}
 
 // Running usage into used/alloc/q_alloc/q_alloc_pc/float_used.  The caller
 // zeroes used, q_alloc, q_alloc_pc and float_used first.
@@ -806,7 +1311,7 @@ extern "C" int armada_round_main(const RoundArgs* args, int* nodes_w, int* count
     ARMADA_CHECK();
     ARMADA_LAUNCH(gstate_init_kernel, grid_for(a.G, a.P), 256, stream)(a);
     ARMADA_CHECK();
-    ARMADA_LAUNCH(place_loop_kernel, one, ARMADA_BLOCK, stream)(a, nodes_w, counts_w);
+    launch_place_loop(a, one, nodes_w, counts_w, stream);
     ARMADA_CHECK();
     ARMADA_LAUNCH(key_sweep_kernel, grid_for(a.G, a.P), 256, stream)(a);
     ARMADA_CHECK();

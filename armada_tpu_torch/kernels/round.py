@@ -1,5 +1,7 @@
 """Wrappers of kernels K-B and K-D (csrc/round.cu): the scheduling round,
-solo or stacked over P pool lanes.
+solo or stacked over P pool lanes, at every loop shape of the uncached
+body: the node-type bias, prefer-large ordering and the multi-commit
+extension (K10) up to commit_k = MAX_COMMIT_K.
 
 On the card the round is a sequence of launches on the current stream with
 no host synchronisation: the prologue scatter and suffix sum, the fair
@@ -20,6 +22,9 @@ from armada_tpu_torch.kernels.build import check, library, require_cuda, stream_
 
 MAX_RESOURCES = 8
 MAX_FIXPOINT_ITERS = 128
+# csrc/round.cu MAX_COMMIT_K: the widest multi-commit the kernel holds in
+# registers and shared memory
+MAX_COMMIT_K = 16
 
 _F32 = ("node_total", "run_req", "g_req", "g_price", "g_spot_price", "q_weight", "q_cds",
         "q_penalty", "total_pool", "drf_mult", "inv_scale", "round_cap", "pc_queue_cap",
@@ -42,10 +47,10 @@ _PTR_FIELDS = (
     "float_used", "sched_res", "spot_res", "spot_price", "run_evicted", "run_rescheduled",
     "pending", "g_state", "q_killed", "q_sched", "q_head", "live_q", "key_bad",
     "slot_gang", "slot_nodes", "slot_counts", "cap_c", "cap_l", "score_c", "score_l",
-    "nmin", "rmin", "cost", "scal",
+    "nmin", "rmin", "cost", "scal", "type_bias", "key_type_row", "g_queue", "okey", "q_nskip",
 )
 _INT_FIELDS = ("N", "R", "G", "Q", "RJ", "K", "T", "C", "P1", "S", "W", "max_iter", "BR",
-               "P")
+               "P", "TR", "prefer_large", "commit_k")
 
 
 class RoundArgs(ctypes.Structure):
@@ -70,41 +75,46 @@ def _check_problem(p, lanes: int) -> None:
             raise ValueError(f"{name}: expected a leading axis of {lanes} lanes, got {tuple(t.shape)}")
 
 
-def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_iterations: int):
+def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_iterations: int,
+                   prefer_large: bool = False, commit_k: int = 1):
     """K-B: run the round on the problem's device: kernels for CUDA, the
-    plain version for the CPU."""
+    plain version for the CPU.  The statics are resolved ones
+    (models/fair_scheduler.py round_statics)."""
     from armada_tpu_torch.models.fair_scheduler import schedule_round_plain
 
+    kw = dict(num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
+              max_iterations=max_iterations, prefer_large=prefer_large, commit_k=commit_k)
     if not p.g_req.is_cuda:
-        return schedule_round_plain(
-            p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
-            max_iterations=max_iterations,
-        )
-    return _launch(p, 0, num_levels, max_slots, slot_width, max_iterations)
+        return schedule_round_plain(p, **kw)
+    return _launch(p, 0, **kw)
 
 
 def schedule_round_stacked(p, *, num_levels: int, max_slots: int, slot_width: int,
-                           max_iterations: int):
-    """K-D: P pools' rounds as one launch sequence.  Every field of `p`
-    carries a leading lane axis of P; every field of the RoundResult does
-    too.  CPU problems run the plain version (a loop over the lanes)."""
+                           max_iterations: int, prefer_large: bool = False, commit_k: int = 1):
+    """K-D: P pools' rounds as one launch sequence, every lane with the same
+    statics.  Every field of `p` carries a leading lane axis of P; every
+    field of the RoundResult does too.  CPU problems run the plain version
+    (a loop over the lanes)."""
     from armada_tpu_torch.models.fair_scheduler import schedule_round_stacked_plain
 
+    kw = dict(num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
+              max_iterations=max_iterations, prefer_large=prefer_large, commit_k=commit_k)
     if not p.g_req.is_cuda:
-        return schedule_round_stacked_plain(
-            p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
-            max_iterations=max_iterations,
-        )
-    return _launch(p, int(p.g_req.shape[0]), num_levels, max_slots, slot_width,
-                   max_iterations)
+        return schedule_round_stacked_plain(p, **kw)
+    return _launch(p, int(p.g_req.shape[0]), **kw)
 
 
-def _launch(p, lanes: int, num_levels: int, max_slots: int, slot_width: int,
-            max_iterations: int):
+def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
+            max_iterations: int, prefer_large: bool, commit_k: int):
     """The launch sequence; `lanes` = 0 for a solo round (no lane axis),
     else P."""
     from armada_tpu_torch.models.fair_scheduler import RoundResult
 
+    if not 1 <= int(commit_k) <= MAX_COMMIT_K:
+        raise ValueError(f"round kernel: commit_k={commit_k} is outside 1..{MAX_COMMIT_K}, "
+                         f"the kernel's compile-time maximum (csrc/round.cu MAX_COMMIT_K)")
+    if prefer_large and commit_k > 1:
+        raise ValueError("round kernel: prefer_large runs at commit_k=1 (round_statics resolves it)")
     _check_problem(p, lanes)
     from armada_tpu_torch.kernels.fair_shares import fair_shares
 
@@ -122,8 +132,9 @@ def _launch(p, lanes: int, num_levels: int, max_slots: int, slot_width: int,
     P1, S, W = int(num_levels), int(max_slots), int(slot_width)
     if R > MAX_RESOURCES:
         raise ValueError(f"round kernel: at most {MAX_RESOURCES} resources, got {R}")
-    if int(p.type_bias.shape[o]) > 1:
-        raise NotImplementedError("hetero type bias (TR > 1) is not ported yet")
+    TR = int(p.type_bias.shape[o])
+    if tuple(p.type_bias.shape[o + 1:]) != (T,) or tuple(p.key_type_row.shape[o:]) != (K,):
+        raise ValueError("round kernel: type_bias must be [TR, T] and key_type_row [K]")
     if min(N, G, Q, RJ, S, W) <= 0:
         raise ValueError("round kernel: every axis must be non-empty")
     if P > 65535:
@@ -161,6 +172,8 @@ def _launch(p, lanes: int, num_levels: int, max_slots: int, slot_width: int,
         nmin=zeros((N,), i32),
         rmin=zeros((N,), i32),
         cost=zeros((RJ,), f32),
+        okey=zeros((Q,), f32),
+        q_nskip=zeros((Q,), i32),
         # [8, P]: slot k of every lane is the contiguous row scal[k]
         scal=torch.zeros((8, P), dtype=i32, device=dev),
     )
@@ -177,7 +190,7 @@ def _launch(p, lanes: int, num_levels: int, max_slots: int, slot_width: int,
         if t is not None:
             setattr(args, name, t.data_ptr())
     for name, v in zip(_INT_FIELDS, (N, R, G, Q, RJ, K, T, C, P1, S, W, int(max_iterations),
-                                     BR, P)):
+                                     BR, P, TR, int(bool(prefer_large)), int(commit_k))):
         setattr(args, name, v)
     stream = stream_handle()
     check(lib.armada_round_prologue(ctypes.byref(args), stream), "round prologue")
@@ -190,6 +203,8 @@ def _launch(p, lanes: int, num_levels: int, max_slots: int, slot_width: int,
         "round kernels",
     )
     kernels.LAUNCHES["round_stacked" if lanes else "round"] += 1
+    if commit_k > 1:
+        kernels.LAUNCHES["round_multi_commit"] += 1
     scal = st["scal"] if lanes else st["scal"][:, 0]
     spot = st["spot_price"] if lanes else st["spot_price"][0]
     return RoundResult(

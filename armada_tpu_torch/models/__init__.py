@@ -43,12 +43,21 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def _kernel_kwargs(problem, ctx) -> dict:
-    return dict(
+def _kernel_kwargs(problem, ctx, config) -> dict:
+    """The round's statics: market pools keep bid ordering and run the
+    single-commit body whatever ARMADA_COMMIT_K says (the extension never
+    commits in a market round); other pools take prefer_large from the
+    config and commit_k from the environment at each call."""
+    market = bool(problem.market)
+    kw = dict(
         num_levels=len(ctx.ladder) + 2,
         max_slots=ctx.max_slots,
         slot_width=ctx.slot_width,
+        prefer_large=bool(config.enable_prefer_large_job_ordering and not market),
     )
+    if market:
+        kw["commit_k"] = 1
+    return kw
 
 
 def _round_env(problem, ctx, config, explain_enabled=True):
@@ -58,12 +67,10 @@ def _round_env(problem, ctx, config, explain_enabled=True):
     stacked dispatch hands the lane to a solo one).  Away rounds pass
     explain_enabled=False and never tick: their outcome.explain is
     discarded, and a tick would shift the host pool's cadence."""
-    if config.enable_prefer_large_job_ordering and not bool(problem.market):
-        raise NotImplementedError("prefer_large ordering is not ported yet")
     from armada_tpu_torch.models import explain as _explain
 
     explain_armed = bool(explain_enabled) and _explain.explain_due(getattr(ctx, "pool", ""))
-    return _kernel_kwargs(problem, ctx), explain_armed
+    return _kernel_kwargs(problem, ctx, config), explain_armed
 
 
 def _build_device_problem(problem, device_problem, device):

@@ -22,12 +22,14 @@ Phases (the reference's preempting queue scheduler):
 device it runs the hand-written kernels (kernels/round.py, the ports of the
 jitted `_schedule_round_jit`); on the CPU it runs `schedule_round_plain`,
 the plain PyTorch version below, which is the readable specification of what
-the kernels compute.  Only the single-commit, uncached loop body is ported
-(commit_k=1, cache_slots=0, batch_k=1, unroll=1): the JAX package's other
-settings of those knobs are decision-identical to it; an environment that
-arms them (ARMADA_COMMIT_K, ARMADA_CACHE_SLOTS, ARMADA_BATCH_K above their
-accelerator defaults) raises instead of being ignored.  prefer_large and
-hetero type bias (TR > 1) are not ported yet and raise.
+the kernels compute.  Every decision-bearing loop shape of the uncached body
+is ported: the node-type bias (TR > 1), prefer-large ordering, and the
+multi-commit extension (commit_k > 1, ARMADA_COMMIT_K; `_extension`), whose
+decisions equal commit_k = 1's and whose trips (kernel_iters) are fewer.
+The JAX package's decision-neutral variants -- the per-key fit cache, the
+batch_k pick chain, unroll -- are not ported: an argument or environment
+that arms them (ARMADA_CACHE_SLOTS, ARMADA_BATCH_K) raises instead of being
+ignored.
 
 `schedule_round_stacked` runs P pools whose problems match in every shape
 as one stacked round (a leading lane axis on every field): kernel K-D on a
@@ -56,6 +58,9 @@ from armada_tpu_torch.ops.packing import (
 
 _BIGI = 2**31 - 1
 _INF = float(np.float32(3.0e38))
+# Prefer-large ordering: lifts over-budget keys above every within-budget key,
+# far below the masked-out _INF.
+_PL_OVER = float(np.float32(1.0e30))
 
 TERM_EXHAUSTED = 0
 TERM_GLOBAL_BURST = 1
@@ -88,45 +93,64 @@ class RoundResult(NamedTuple):
     kernel_iters: torch.Tensor  # i32 loop-body applications
 
 
-def resolve_round_statics(p: SchedulingProblem, *, max_iterations: int = 0,
-                          prefer_large: bool = False, cache_slots: int = -1,
-                          unroll: int = -1, batch_k: int = -1,
-                          commit_k: int = -1) -> int:
-    """Check the statics against the ported loop shape and return the
-    iteration bound (2G + Q + 8 when max_iterations <= 0)."""
+def round_statics(p: SchedulingProblem, *, max_iterations: int = 0,
+                  prefer_large: bool = False, cache_slots: int = -1,
+                  unroll: int = -1, batch_k: int = -1, commit_k: int = -1) -> dict:
+    """Resolve the loop statics as the JAX package's `_resolve_round_statics`
+    does, from the per-lane shapes of a stacked problem: -1 reads the
+    environment (ARMADA_CACHE_SLOTS, ARMADA_BATCH_K, ARMADA_COMMIT_K) or the
+    accelerator default; commit_k is clamped to [1, Q]; prefer_large forces
+    commit_k = batch_k = 1, and commit_k > 1 forces batch_k = 1.  Returns
+    dict(max_iterations, prefer_large, commit_k), the iteration bound being
+    2G + Q + 8 when max_iterations <= 0.  The decision-neutral variants
+    that are not ported (the per-key fit cache, the batch_k pick chain,
+    unroll) raise NotImplementedError when they resolve to an armed value."""
     o = 1 if p.q_weight.dim() == 2 else 0  # a stacked problem's lane axis
-    if prefer_large:
-        raise NotImplementedError("prefer_large ordering is not ported yet")
-    if int(p.type_bias.shape[o]) > 1:
-        raise NotImplementedError("hetero type bias (TR > 1) is not ported yet")
-    for name, value, ok in (
-        ("cache_slots", cache_slots, (-1, 0)),
-        ("unroll", unroll, (-1, 1)),
-        ("batch_k", batch_k, (-1, 1)),
-        ("commit_k", commit_k, (-1, 1)),
-    ):
-        if int(value) not in ok:
-            raise NotImplementedError(
-                f"{name}={value} is not ported; the port runs {name}={ok[1]}"
-            )
-    for name, default in (("ARMADA_COMMIT_K", 1), ("ARMADA_CACHE_SLOTS", 0),
-                          ("ARMADA_BATCH_K", 1)):
-        env = os.environ.get(name)
-        if env and _env_int(env, default) > default:
-            raise NotImplementedError(
-                f"{name}={env} arms a loop shape that is not ported; the port runs "
-                f"{name}={default}"
-            )
     G = int(p.g_req.shape[o])
     Q = int(p.q_weight.shape[o])
-    return max_iterations if max_iterations > 0 else 2 * G + Q + 8
+    if cache_slots < 0:
+        env = os.environ.get("ARMADA_CACHE_SLOTS")
+        cache_slots = min(int(env), int(p.compat.shape[o])) if env else 0
+    if unroll < 0:
+        unroll = 1
+    if batch_k < 0:
+        env = os.environ.get("ARMADA_BATCH_K")
+        batch_k = int(env) if env else 1
+    if commit_k < 0:
+        commit_k = resolve_commit_k()
+    commit_k = max(1, min(commit_k, Q))
+    if prefer_large:
+        commit_k = 1
+    if cache_slots > 0 or prefer_large or commit_k > 1:
+        batch_k = 1
+    for name, value, ported in (("cache_slots", cache_slots, 0), ("batch_k", batch_k, 1),
+                                ("unroll", unroll, 1)):
+        if value > ported:
+            raise NotImplementedError(
+                f"{name}={value} (argument or environment) arms a loop shape that is not "
+                f"ported; the port runs {name}={ported}"
+            )
+    return dict(
+        max_iterations=max_iterations if max_iterations > 0 else 2 * G + Q + 8,
+        prefer_large=bool(prefer_large),
+        commit_k=commit_k,
+    )
 
 
-def _env_int(text: str, default: int) -> int:
+def resolve_round_statics(p: SchedulingProblem, **kw) -> int:
+    """The iteration bound of `round_statics` (2G + Q + 8 when
+    max_iterations <= 0), after the same checks."""
+    return round_statics(p, **kw)["max_iterations"]
+
+
+def resolve_commit_k() -> int:
+    """The multi-commit width armed by ARMADA_COMMIT_K (default 1), floored
+    at 1; an unparsable value reads as 1, as in the JAX package."""
+    env = os.environ.get("ARMADA_COMMIT_K")
     try:
-        return int(text)
+        return max(1, int(env)) if env else 1
     except ValueError:
-        return default
+        return 1
 
 
 def schedule_round(
@@ -145,7 +169,8 @@ def schedule_round(
 ) -> RoundResult:
     """Run one scheduling round.  `p` may hold numpy arrays (it is moved to
     `device` first) or tensors, which must lie on `device`.  A CUDA device
-    runs the kernels; the CPU runs the plain version."""
+    runs the kernels; the CPU runs the plain version.  The statics resolve
+    as in `round_statics`."""
     from armada_tpu_torch.models.state import problem_from_numpy, problem_device
 
     device = torch.device(device)
@@ -158,16 +183,14 @@ def schedule_round(
     have = problem_device(p)
     if have.type != device.type:
         raise ValueError(f"schedule_round: problem lies on {have}, not {device}")
-    max_iterations = resolve_round_statics(
+    statics = round_statics(
         p, max_iterations=max_iterations, prefer_large=prefer_large,
         cache_slots=cache_slots, unroll=unroll, batch_k=batch_k, commit_k=commit_k,
     )
     from armada_tpu_torch.kernels.round import schedule_round as wrapper
 
-    return wrapper(
-        p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
-        max_iterations=max_iterations,
-    )
+    return wrapper(p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
+                   **statics)
 
 
 def schedule_round_stacked(
@@ -186,25 +209,24 @@ def schedule_round_stacked(
     """Run P independent pools' rounds as one stacked round.  Every field of
     `p` carries a leading lane axis (lane i is pool i's padded problem, all
     lanes equal in shape); so does every field of the result.  The statics
-    resolve as for `schedule_round`, from the per-lane shapes.  A CUDA
-    problem runs kernel K-D; a CPU problem the plain version."""
+    resolve as for `schedule_round`, from the per-lane shapes, and every
+    lane runs with them.  A CUDA problem runs kernel K-D; a CPU problem the
+    plain version."""
     if p.q_weight.dim() != 2 or int(p.g_req.shape[0]) < 1:
         raise ValueError("schedule_round_stacked: expected a [P, ...] stacked problem")
-    max_iterations = resolve_round_statics(
+    statics = round_statics(
         p, max_iterations=max_iterations, prefer_large=prefer_large,
         cache_slots=cache_slots, unroll=unroll, batch_k=batch_k, commit_k=commit_k,
     )
     from armada_tpu_torch.kernels.round import schedule_round_stacked as wrapper
 
-    return wrapper(
-        p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
-        max_iterations=max_iterations,
-    )
+    return wrapper(p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
+                   **statics)
 
 
 def schedule_round_stacked_plain(
     p: SchedulingProblem, *, num_levels: int, max_slots: int, slot_width: int,
-    max_iterations: int,
+    max_iterations: int, prefer_large: bool = False, commit_k: int = 1,
 ) -> RoundResult:
     """The plain version of kernel K-D: the solo plain round on each lane,
     stacked.  Exact because the lanes share nothing."""
@@ -212,6 +234,7 @@ def schedule_round_stacked_plain(
         schedule_round_plain(
             SchedulingProblem(*(t[i] for t in p)), num_levels=num_levels,
             max_slots=max_slots, slot_width=slot_width, max_iterations=max_iterations,
+            prefer_large=prefer_large, commit_k=commit_k,
         )
         for i in range(int(p.g_req.shape[0]))
     ]
@@ -245,9 +268,10 @@ def move_runs_to_evicted(alloc, q_alloc, q_alloc_pc, p: SchedulingProblem, move,
     return alloc, q_alloc, flat.reshape(Q, C, R)
 
 
-def round_prologue(p: SchedulingProblem, num_levels: int):
+def round_prologue(p: SchedulingProblem, num_levels: int, shares=None):
     """Running usage, fair-share eviction and gang activation.  Returns
-    (alloc, q_alloc, q_alloc_pc, float_used, run_evicted, g_state)."""
+    (alloc, q_alloc, q_alloc_pc, float_used, run_evicted, g_state).
+    `shares`: the round's fair shares when the caller has them already."""
     dev = p.g_req.device
     N, R = p.node_total.shape
     Q = p.q_weight.shape[0]
@@ -265,7 +289,8 @@ def round_prologue(p: SchedulingProblem, num_levels: int):
     q_alloc_pc.index_add_(0, p.run_queue.long() * C + p.run_pc.long(), run_w)
     q_alloc_pc = q_alloc_pc.reshape(Q, C, R)
 
-    shares = fair_shares(p.q_weight, p.q_cds)
+    if shares is None:
+        shares = fair_shares(p.q_weight, p.q_cds)
     actual = unweighted_drf_cost(q_alloc, p.total_pool, p.drf_mult)
     fairsh = torch.maximum(shares.demand_capped_adjusted_fair_share, shares.fair_share)
     pos = fairsh > 0
@@ -302,11 +327,13 @@ def _fit_row(alloc_rows, req):
 
 def schedule_round_plain(
     p: SchedulingProblem, *, num_levels: int, max_slots: int, slot_width: int,
-    max_iterations: int,
+    max_iterations: int, prefer_large: bool = False, commit_k: int = 1,
 ) -> RoundResult:
     """The round as plain PyTorch on the problem's device: one Python
     iteration per step of the reference's placement `while_loop`, with the
-    loop body's data-dependent branches taken on host-side scalars."""
+    loop body's data-dependent branches taken on host-side scalars.
+    `prefer_large` orders queues by the prefer-large rule; `commit_k` > 1
+    appends the multi-commit extension (`_extension`) to every step."""
     dev = p.g_req.device
     G = p.g_req.shape[0]
     N, R = p.node_total.shape
@@ -316,8 +343,9 @@ def schedule_round_plain(
     f32 = torch.float32
     i32 = torch.int32
 
+    shares = fair_shares(p.q_weight, p.q_cds)
     alloc, q_alloc, q_alloc_pc, float_used, run_evicted, g_state = round_prologue(
-        p, num_levels
+        p, num_levels, shares
     )
 
     # loop-invariant tables
@@ -334,10 +362,25 @@ def schedule_round_plain(
     pool_safe = torch.maximum(p.total_pool, torch.tensor(1e-9, dtype=f32, device=dev))
     arangeW = torch.arange(W, device=dev)
     qidx = torch.arange(Q, device=dev)
+    # node-type bias (TR > 1): the per-node table of every bias row, and the
+    # row of each key (row 0: keyless and type-insensitive keys)
+    hetero = int(p.type_bias.shape[0]) > 1
+    type_bias_nodes = p.type_bias[:, node_type] if hetero else None
+    if prefer_large:
+        # itemSize: the unweighted gang cost times its queue's weight; the
+        # weighted budget: the demand-capped share over the weight
+        g_size = unweighted_drf_cost(g_req_tot, p.total_pool, p.drf_mult) * \
+            p.q_weight[p.g_queue.long()]
+        q_budget = torch.where(
+            p.q_weight > 0,
+            shares.demand_capped_adjusted_fair_share
+            / torch.maximum(p.q_weight, torch.tensor(1e-9, dtype=f32, device=dev)),
+            torch.zeros_like(p.q_weight),
+        )
     host = {
         name: getattr(p, name).cpu().numpy()
         for name in ("g_card", "g_level", "g_key", "g_pc", "g_run", "g_ban_row",
-                     "run_node", "perq_burst")
+                     "run_node", "perq_burst", "key_type_row")
     }
     market = bool(p.market)
     global_burst = int(p.global_burst)
@@ -357,6 +400,7 @@ def schedule_round_plain(
     spot_res = torch.zeros((R,), dtype=f32, device=dev)
     new_blocked = False
     iterations = 0
+    kernel_iters = 0
     done = False
     termination = TERM_EXHAUSTED
     spot_price = torch.tensor(-1.0, dtype=f32, device=dev)
@@ -388,10 +432,26 @@ def schedule_round_plain(
             (q_alloc + p.q_penalty) + g_req_tot[cand], p.total_pool, p.drf_mult,
             p.q_weight,
         )
-        order_key = -p.g_price[cand] if market else proposed
-        order_key = torch.where(has, order_key, torch.full_like(order_key, _INF))
-        qstar = int(torch.argmin(order_key))
         any_q = bool(has.any())
+        if prefer_large:
+            # within budget: the CURRENT cost; over budget: _PL_OVER + the
+            # proposed cost (f32: absorbs any cost below ~1e22, so over-budget
+            # queues tie there); exact ties to the largest gang, then the
+            # lowest queue
+            current = weighted_drf_cost(q_alloc + p.q_penalty, p.total_pool, p.drf_mult,
+                                        p.q_weight)
+            order_key = torch.where(proposed <= q_budget, current, _PL_OVER + proposed)
+            if market:
+                order_key = -p.g_price[cand]
+            order_key = torch.where(has, order_key, torch.full_like(order_key, _INF))
+            tied = has & (order_key == order_key.min())
+            tie_size = torch.where(tied, g_size[cand], torch.full_like(order_key, -_INF))
+            pick = tied & (tie_size >= tie_size.max())
+            qstar = int(torch.where(pick, qidx, torch.full_like(qidx, Q - 1)).min())
+        else:
+            order_key = -p.g_price[cand] if market else proposed
+            order_key = torch.where(has, order_key, torch.full_like(order_key, _INF))
+            qstar = int(torch.argmin(order_key))
 
         g = int(cand[qstar])
         req = p.g_req[g]
@@ -450,6 +510,10 @@ def schedule_round_plain(
                 )
                 alloc_sel = alloc[level]
             score = node_packing_score(alloc_sel, p.inv_scale)
+            if hetero:
+                # one f32 add after the packing-score chain, as in the reference
+                trow = int(host["key_type_row"][key]) if key >= 0 else 0
+                score = score + type_bias_nodes[trow]
             fit_feasible = int(cap_sel.sum()) >= card
             if card == 1:
                 found, node = select_best_node(cap_sel >= 1, score)
@@ -508,7 +572,43 @@ def schedule_round_plain(
             if termination == TERM_EXHAUSTED:
                 termination = TERM_GLOBAL_BURST if hit_burst else TERM_ROUND_CAP
         done = not any_q and not advanced
-        iterations += 1
+
+        # --- the multi-commit extension: up to commit_k - 1 more placements
+        n_ext = 0
+        hidden = bool(((nskip >= W) & (q_head < q_len)).any())
+        if commit_k > 1 and placed and not market and not hidden:
+            qe, ge, node_e, n_ext = _extension(
+                p, commit_k - 1, qstar=qstar, order_key=order_key, cand=cand, pos=pos,
+                wg=wg, in_r=in_r, skippable=skippable, alloc=alloc, q_alloc=q_alloc,
+                q_alloc_pc=q_alloc_pc, q_sched=q_sched, q_killed=q_killed,
+                new_blocked=new_blocked, sched_count=sched_count, sched_res=sched_res,
+                float_used=float_used, float_cap=float_cap, iterations=iterations,
+                max_iterations=max_iterations, g_req_node=g_req_node,
+                g_float_tot=g_float_tot, g_req_tot=g_req_tot, hetero=hetero,
+            )
+            # (9) the certified prefix commits in pick order
+            for e in range(n_ext):
+                q, gg, nd = int(qe[e]), int(ge[e]), int(node_e[e])
+                lvl, pce = int(host["g_level"][gg]), int(host["g_pc"][gg])
+                req_e, reqn_e = p.g_req[gg], g_req_node[gg]
+                alloc[: lvl + 1, nd, :] -= reqn_e[None, :]
+                q_alloc[q] += req_e
+                q_alloc_pc[q, pce] += req_e
+                q_sched[q] += 1
+                sched_res = sched_res + req_e
+                float_used = float_used + g_float_tot[gg]
+                spot_res = spot_res + req_e
+                g_state[gg] = 1
+                if cursor < max_slots:
+                    slot_gang[cursor] = gg
+                    slot_nodes[cursor] = empty_nodes
+                    slot_nodes[cursor, 0] = nd
+                    slot_counts[cursor] = empty_counts
+                    slot_counts[cursor, 0] = 1
+                cursor += 1
+            sched_count += n_ext
+        iterations += 1 + n_ext
+        kernel_iters += 1
 
     if not done and iterations >= max_iterations:
         termination = TERM_MAX_ITER
@@ -537,8 +637,152 @@ def schedule_round_plain(
         scheduled_count=scalar(sched_count, i32),
         spot_price=spot_price,
         q_killed=q_killed,
-        kernel_iters=scalar(iterations, i32),
+        kernel_iters=scalar(kernel_iters, i32),
     )
+
+
+def _ordered_masked_sum(mask: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """sum_k mask[..., k] * rows[k] (f32), added in ascending k from +0."""
+    acc = torch.zeros(mask.shape[:-1] + rows.shape[1:], dtype=rows.dtype, device=rows.device)
+    for k in range(int(rows.shape[0])):
+        acc = acc + mask[..., k, None] * rows[k]
+    return acc
+
+
+def _extension(p: SchedulingProblem, E: int, *, qstar, order_key, cand, pos, wg, in_r,
+               skippable, alloc, q_alloc, q_alloc_pc, q_sched, q_killed, new_blocked,
+               sched_count, sched_res, float_used, float_cap, iterations, max_iterations,
+               g_req_node, g_float_tot, g_req_tot, hetero):
+    """The multi-commit extension of one placement step (the JAX package's
+    `_make_place_iteration` at commit_k = E + 1), run after the head queue
+    placed its gang in a non-market round with no queue's window exhausted.
+    Every argument is the step's state after the head's commit.  Returns
+    (qe, ge, node_e, n): the E next queues in order-key order, their head
+    gangs, each one's node, and the length of the certified prefix -- the
+    picks that provably equal the next n sequential steps: non-evictee,
+    unbanned, type-insensitive singles within every cap, whose queues'
+    next candidates do not precede a later pick, and whose nodes neither
+    flip another pick's clean fit nor beat its best fit."""
+    dev = order_key.device
+    N = p.node_total.shape[0]
+    W = SKIP_WINDOW
+    f32 = torch.float32
+    inf = torch.tensor(_INF, dtype=f32, device=dev)
+    iota_e = torch.arange(E, device=dev)
+    iota_k = torch.arange(E + 1, device=dev)
+
+    # (1) the E + 1 lowest order keys, ties to the lower queue (a stable
+    # sort; rank 0 is the head queue)
+    topq = torch.sort(order_key, stable=True).indices[: E + 1]
+    qe = topq[1:]
+    keye = order_key[qe]
+    ge = cand[qe].long()
+    card_e = p.g_card[ge]
+    run_e = p.g_run[ge]
+    level_e = p.g_level[ge].long()
+    key_e = p.g_key[ge].long()
+    pc_e = p.g_pc[ge].long()
+    req_e = p.g_req[ge]
+    reqn_e = g_req_node[ge]
+    flt_e = g_float_tot[ge]
+
+    # (3) eligibility: unbanned, non-evictee singles with a live key;
+    # type-sensitive picks run as heads (their bias can flip node choices)
+    elig = (keye < inf) & (card_e == 1) & (run_e < 0) & (p.g_ban_row[ge] == 0)
+    if hetero:
+        trow_e = torch.where(key_e >= 0, p.key_type_row[key_e.clamp(min=0)], 0)
+        elig &= trow_e == 0
+
+    # (4) caps, burst, floating capacity and the iteration bound, walked in
+    # commit order with the sequential f32 accumulation
+    ok_caps = torch.zeros((E,), dtype=torch.bool, device=dev)
+    run_res, run_flt = sched_res, float_used
+    for i in range(E):
+        run_res = run_res + req_e[i]
+        run_flt = run_flt + flt_e[i]
+        ok_caps[i] = (
+            (sched_count + i + 1 <= int(p.global_burst))
+            and bool((run_res <= p.round_cap).all())
+            and bool((run_flt <= float_cap).all())
+            and iterations + 1 + i < max_iterations
+        )
+    ok_caps &= (q_sched[qe] + 1) <= p.perq_burst[qe]
+    ok_caps &= ((q_alloc_pc[qe, pc_e] + req_e) <= p.pc_queue_cap[pc_e]).all(dim=1)
+
+    # (5) queue order: after each batch queue commits, its NEXT candidate
+    # (the first undecided window entry past its head) must not precede a
+    # later pick; a window that ends before the queue's tail proves nothing
+    qk = torch.cat([torch.tensor([qstar], device=dev), qe])
+    parked = in_r & ~skippable
+    nn = torch.full((parked.shape[0], W + 1), W, dtype=torch.int64, device=dev)
+    for i in range(W - 1, -1, -1):
+        nn[:, i] = torch.where(parked[:, i], i, nn[:, i + 1])
+    tail_known = ~in_r[:, W - 1]
+    npos = nn[qk, torch.clamp(pos[qk] + 1, max=W)]
+    g_next = wg[qk, torch.clamp(npos, max=W - 1)]
+    own_req = torch.cat([torch.zeros((1, req_e.shape[1]), dtype=f32, device=dev), req_e])
+    row_k = q_alloc[qk] + own_req
+    nk = weighted_drf_cost((row_k + p.q_penalty[qk]) + g_req_tot[g_next], p.total_pool,
+                           p.drf_mult, p.q_weight[qk])
+    next_new = p.g_run[g_next] < 0
+    allowed = ~(next_new & (new_blocked | q_killed[qk])) & (p.q_weight[qk] > 0)
+    nk = torch.where(allowed, nk, inf)
+    nk = torch.where(npos < W, nk, torch.where(tail_known[qk], inf, -inf))
+    prior_k = iota_k[:, None] <= iota_e[None, :]
+    ok_pair = (nk[:, None] > keye[None, :]) | (
+        (nk[:, None] == keye[None, :]) & (qk[:, None] > qe[None, :])
+    )
+    ok_order = (ok_pair | ~prior_k).all(dim=0)
+
+    # (6) each pick's node against the post-head state: the masked-score
+    # first argmin at the clean level, else at the pick's own level
+    node_type = p.node_type.long()
+    static_e = torch.where((key_e >= 0)[:, None], p.compat[key_e.clamp(min=0)][:, node_type],
+                           torch.ones((E, N), dtype=torch.bool, device=dev))
+    okn_e = static_e & p.node_ok[None, :]
+    fit0_e = okn_e & _fit_row(alloc[0][None, :, :], reqn_e[:, None, :])
+    fitl_e = okn_e & _fit_row(alloc[level_e], reqn_e[:, None, :])
+    score_lvls = node_packing_score(alloc, p.inv_scale)
+    use_clean_e = fit0_e.any(dim=1)
+    msel = torch.where(
+        use_clean_e[:, None],
+        torch.where(fit0_e, score_lvls[0][None, :], inf),
+        torch.where(fitl_e, score_lvls[level_e], inf),
+    )
+    node_e = torch.argmin(msel, dim=1)
+    found_e = msel[iota_e, node_e] < inf
+    lvl_sel_e = torch.where(use_clean_e, 0, level_e)
+
+    # (7) conflicts under the cumulative deltas of the earlier picks: no
+    # clean-fit flip at an earlier pick's node, the pick's own node still
+    # fits, and no earlier pick's node now beats it (lower score, or equal
+    # at a lower index)
+    prior_f = (iota_e[:, None] > iota_e[None, :]).to(f32)  # [e, k]: k before e
+    samen = (node_e[:, None] == node_e[None, :]).to(f32)  # [j, k]: same node
+    cum0 = _ordered_masked_sum(prior_f[:, None, :] * samen[None, :, :], reqn_e)
+    okn_at = okn_e[:, node_e]  # [e, j]
+    post_fit0 = okn_at & _fit_row(alloc[0][node_e][None, :, :] - cum0, reqn_e[:, None, :])
+    flip0 = fit0_e[:, node_e] & ~post_fit0
+    applies = prior_f * (lvl_sel_e[:, None] <= level_e[None, :]).to(f32)
+    cum_sel = _ordered_masked_sum(applies[:, None, :] * samen[None, :, :], reqn_e)
+    adj_sel = alloc[lvl_sel_e][:, node_e] - cum_sel
+    adj_fit = okn_at & _fit_row(adj_sel, reqn_e[:, None, :])
+    adj_score = node_packing_score(adj_sel, p.inv_scale)
+    self_fit = adj_fit[iota_e, iota_e]
+    self_score = adj_score[iota_e, iota_e]
+    beats = adj_fit & (
+        (adj_score < self_score[:, None])
+        | ((adj_score == self_score[:, None]) & (node_e[None, :] < node_e[:, None]))
+    )
+    self_pair = node_e[:, None] == node_e[None, :]
+    prior_e = iota_e[None, :] < iota_e[:, None]
+    conflict = torch.where(self_pair, flip0, flip0 | beats)
+    ok_nodes = self_fit & ~(conflict & prior_e).any(dim=1)
+
+    # (8) the certified prefix
+    raw_ok = elig & ok_caps & ok_order & ok_nodes & found_e
+    n = int(torch.cumprod(raw_ok.to(torch.int64), dim=0).sum())
+    return qe, ge, node_e, n
 
 
 def retire_bad_keys(g_state, p: SchedulingProblem, key_bad):

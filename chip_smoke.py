@@ -19,7 +19,14 @@ fill and three steady cycles with ARMADA_POOL_PARALLEL=1 (the seven
 shape-matched pools stacked into one launch: K-E, K-D, K-F, the stacked
 K-I, K-G) and =0, which must decide the same; its kernels are held against
 their plain versions on small windows of lanes before the main path, and
-on a steady cycle's own state.
+on a steady cycle's own state.  Right after the main path, the loop-shapes
+path: the main problem again through run_round_on_device with
+ARMADA_COMMIT_K=8 (the multi-commit extension, K10), which must decide as
+the K=1 round did, and with prefer-large ordering; a 1M-gang problem with
+node-type bias; run_scheduling_round with node-type scores and both arms of
+the pools serving loop at K=1 and 8 on small worlds.  Those branches are
+held against their plain versions on small problems, solo and stacked,
+before the main path.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
@@ -69,6 +76,8 @@ SOURCES = {
     "compact_stacked": ("armada_tpu_torch/csrc/compact.cu", "armada_tpu/models/problem.py:1501"),
     "lane_slice": ("armada_tpu_torch/csrc/lanes.cu", "armada_tpu/models/problem.py:1596"),
     "verify_stacked": ("armada_tpu_torch/csrc/verify.cu", "armada_tpu/models/verify.py:496"),
+    "round_multi_commit": ("armada_tpu_torch/csrc/round.cu",
+                           "armada_tpu/models/fair_scheduler.py:773"),
 }
 # The incremental path: the steady-state cycle over the main path's world
 # (bench.py's _e2e_bench shape): one warm cycle (full upload), then steady
@@ -147,15 +156,15 @@ def tensor_bytes(*ts) -> int:
 
 def max_err(a, b) -> float:
     """Max |a - b| between a kernel's and its plain version's outputs (two
-    RoundResults, every field but kernel_iters, or two tensors).  The kernels
-    are held to exact equality, so any difference raises and the value
-    returned is 0.0."""
+    RoundResults, every field, kernel_iters included, or two tensors).  The
+    kernels are held to exact equality, so any difference raises and the
+    value returned is 0.0."""
     import torch
 
     if isinstance(a, torch.Tensor):
         pairs = [("tensor", a, b)]
     else:
-        pairs = [(f, getattr(a, f), getattr(b, f)) for f in a._fields if f != "kernel_iters"]
+        pairs = [(f, getattr(a, f), getattr(b, f)) for f in a._fields]
     err = 0.0
     for name, x, y in pairs:
         x = x.detach().cpu()
@@ -243,29 +252,31 @@ def check_compact(dev) -> None:
     log(f"K-C compact G={G} RJ={RJ}: kernel == plain (capped and uncapped lists)")
 
 
-def check_round(name: str, problem, meta: dict, dev) -> dict:
-    """Kernel round vs plain round on the card: every field but kernel_iters."""
+def check_round(name: str, problem, meta: dict, dev, **statics) -> dict:
+    """Kernel round vs plain round on the card, every field (kernel_iters
+    included), at the loop shape `statics` (prefer_large, commit_k) asks
+    for.  `problem` is a numpy problem or one on the card."""
     import torch
 
     from armada_tpu_torch.kernels.round import schedule_round
-    from armada_tpu_torch.models.fair_scheduler import schedule_round_plain
+    from armada_tpu_torch.models.fair_scheduler import round_statics, schedule_round_plain
     from armada_tpu_torch.models.state import problem_from_numpy
 
-    dp = problem_from_numpy(problem, dev)
-    G = int(dp.g_req.shape[0])
-    Q = int(dp.q_weight.shape[0])
-    kw = dict(meta, max_iterations=2 * G + Q + 8)
+    dp = problem if isinstance(problem.g_req, torch.Tensor) else problem_from_numpy(problem, dev)
+    kw = dict(meta, **round_statics(dp, **statics))
     k = schedule_round(dp, **kw)
     torch.cuda.synchronize()
     p = schedule_round_plain(dp, **kw)
     torch.cuda.synchronize()
     max_err(k, p)
     info = dict(
-        iterations=int(k.iterations), scheduled=int(k.scheduled_count),
+        iterations=int(k.iterations), kernel_iters=int(k.kernel_iters),
+        scheduled=int(k.scheduled_count),
         evicted=int(k.run_evicted.sum()), rescheduled=int(k.run_rescheduled.sum()),
         termination=int(k.termination), spot_price=float(k.spot_price),
     )
-    log(f"K-B round [{name}]: kernel == plain {info}")
+    shape = " ".join(f"{a}={b}" for a, b in statics.items())
+    log(f"K-B round [{name}{' ' + shape if shape else ''}]: kernel == plain {info}")
     return info
 
 
@@ -434,7 +445,331 @@ def main_path(dev, world) -> dict:
                   live_queues=live_q, indicative_shares=outcome.indicative_shares,
                   scheduled=len(outcome.scheduled), preempted=len(outcome.preempted),
                   failed=len(outcome.failed), termination=outcome.termination)
-    return dict(rows=rows, stages=stages, launches=launches, outcome=outcome)
+    state = dict(config=config, problem=problem, ctx=ctx, dp=dp, outcome=outcome)
+    return dict(rows=rows, stages=stages, launches=launches, outcome=outcome, state=state)
+
+
+# --- the loop-shapes path: multi-commit (K10), node-type bias, prefer-large ----
+
+# The multi-commit width armed on this path (ARMADA_COMMIT_K)
+LOOP_COMMIT_K = 8
+# The bias problem at full width: the soak default share of type-sensitive
+# jobs (armada_tpu/loadgen/soak.py:91), gangs up to 8
+HETERO_PROBLEM = dict(num_nodes=50_000, num_gangs=1_000_000, num_queues=64, num_runs=25_000,
+                      num_node_types=8, type_sensitive_frac=0.3, max_gang_cardinality=8, seed=0)
+# small problems the new branches are held on first, before the main path
+LOOP_BURST = dict(num_nodes=2_000, num_gangs=20_000, num_queues=64, num_runs=0,
+                  global_burst=1_000, perq_burst=1_000, max_gang_cardinality=1, seed=3)
+LOOP_HETERO = dict(num_nodes=2_000, num_gangs=20_000, num_queues=32, num_runs=500,
+                   num_node_types=8, type_sensitive_frac=0.3, max_gang_cardinality=4, seed=1)
+LOOP_LANES = dict(num_nodes=1_000, num_gangs=6_000, num_queues=40, num_runs=400,
+                  max_gang_cardinality=2, type_sensitive_frac=0.3, seed=4)
+# the entry points' small worlds: node types and type scores on a synthetic
+# world, and a four-pool split of another for the serving loop
+ENTRY_WORLD = dict(num_nodes=1_200, num_jobs=24_000, num_queues=16, num_runs=600, seed=9,
+                   shape_bucket=1024)
+ENTRY_TYPES = ("v4", "v5e", "v6", "")
+ENTRY_POOL_NODES = (300, 300, 300, 300)
+
+
+def _lanes_of(dp, P: int) -> list:
+    """P device problems of one shape from one: queue weights rolled, nodes
+    and gangs masked differently in each lane."""
+    import torch
+
+    dev = dp.g_req.device
+    lanes = [dp]
+    for i in range(1, P):
+        r = np.random.default_rng(100 + i)
+        lanes.append(dp._replace(
+            q_weight=torch.roll(dp.q_weight, i),
+            node_ok=dp.node_ok & torch.as_tensor(r.random(dp.node_ok.shape[0]) > 0.05 * i,
+                                                 device=dev),
+            g_valid=dp.g_valid & torch.as_tensor(r.random(dp.g_valid.shape[0]) > 0.1 * i,
+                                                 device=dev),
+        ))
+    return lanes
+
+
+def check_loop_kernels(dev) -> dict:
+    """The round's new branches against their plain versions on the card,
+    on small problems, every RoundResult field: K10 at K = 8 and 16 on a
+    burst of singles, the node-type bias (TR > 1) at K = 1 and 8,
+    prefer-large on gangs and on evictees; then K-D with each on windows of
+    3 lanes, each lane equal to the solo K-B round."""
+    from armada_tpu_torch.models.state import problem_from_numpy
+    from armada_tpu_torch.models.synthetic import synthetic_problem
+
+    out = {}
+    bp, bmeta = synthetic_problem(**LOOP_BURST)
+    bdp = problem_from_numpy(bp, dev)
+    for k in (1, LOOP_COMMIT_K, 16):
+        out[f"burst K={k}"] = check_round("burst", bdp, bmeta, dev, commit_k=k)
+    if 2 * out[f"burst K={LOOP_COMMIT_K}"]["kernel_iters"] > out["burst K=1"]["kernel_iters"]:
+        raise AssertionError(f"K={LOOP_COMMIT_K} did not halve the burst's trips: {out}")
+    hp, hmeta = synthetic_problem(**LOOP_HETERO)
+    if hp.type_bias.shape[0] < 2:
+        raise AssertionError("the hetero problem has no type-sensitive key")
+    hdp = problem_from_numpy(hp, dev)
+    for k in (1, LOOP_COMMIT_K):
+        out[f"hetero K={k}"] = check_round("hetero", hdp, hmeta, dev, commit_k=k)
+    sp, smeta = synthetic_problem(**KB_SYNTH)
+    out["prefer-large gangs"] = check_round("synthetic_problem", sp, smeta, dev,
+                                            prefer_large=True)
+    ep, ectx = world_problem(KB_EVICT, protected=0.0)
+    out["prefer-large evict"] = check_round("eviction world", ep, round_meta(ectx), dev,
+                                            prefer_large=True)
+    if out["prefer-large evict"]["evicted"] == 0:
+        raise AssertionError("the prefer-large eviction world evicted nothing")
+    lp, lmeta = synthetic_problem(**LOOP_LANES)
+    lanes = _lanes_of(problem_from_numpy(lp, dev), 3)
+    for statics in (dict(commit_k=LOOP_COMMIT_K), dict(prefer_large=True)):
+        key = "stacked " + " ".join(f"{a}={b}" for a, b in statics.items())
+        out[key] = _stacked_check("loop lanes (TR > 1)", lanes, lmeta, dev, **statics)
+    return out
+
+
+def _typed_world(spec: dict):
+    """synthetic_world with its nodes cycling through ENTRY_TYPES and every
+    third queued job declaring throughputs for two of the types."""
+    from armada_tpu_torch.models.synthetic import synthetic_world
+
+    config, nodes, queues, specs, running, factory = synthetic_world(**spec)
+    nodes = [dataclasses.replace(n, node_type=ENTRY_TYPES[i % len(ENTRY_TYPES)])
+             for i, n in enumerate(nodes)]
+    rng = np.random.default_rng(spec["seed"])
+    typed = []
+    for i, s in enumerate(specs):
+        if i % 3 == 0:
+            a, b = rng.choice(3, 2, replace=False)
+            s = dataclasses.replace(s, node_type_scores=(
+                (ENTRY_TYPES[a], float(rng.choice([1.0, 2.0, 4.0]))),
+                (ENTRY_TYPES[b], float(rng.choice([1.0, 2.0, 4.0])))))
+        typed.append(s)
+    return config, nodes, queues, typed, running, factory
+
+
+def _outcome_view(o) -> tuple:
+    return (sorted(o.scheduled.items()), sorted(o.preempted), sorted(o.rescheduled),
+            list(o.failed), o.num_iterations, o.termination, o.spot_price)
+
+
+def _with_commit_k(k: int, fn):
+    os.environ["ARMADA_COMMIT_K"] = str(k)
+    try:
+        return fn()
+    finally:
+        os.environ.pop("ARMADA_COMMIT_K", None)
+
+
+def _small_pool_arm(dev, world: dict, fresh: list, parallel: bool, commit_k: int) -> dict:
+    """FairSchedulingAlgo over the entry world split into 4 pools: a fill
+    cycle and one steady cycle that submits `fresh`, with ARMADA_COMMIT_K =
+    commit_k."""
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch import models as M
+    from armada_tpu_torch.jobdb.job import Job
+
+    os.environ["ARMADA_POOL_PARALLEL"] = "1" if parallel else "0"
+    os.environ["ARMADA_COMMIT_K"] = str(commit_k)
+    try:
+        M.reset_stack_cache()
+        cfg, jdb, feed, algo, executors, names = pools_world(
+            world, dev, pool_nodes=ENTRY_POOL_NODES, bucket=1024)
+        kernels.reset_launches()
+        decisions = []
+        for c in range(2):
+            txn = jdb.write_txn()
+            if c:
+                txn.upsert([Job(spec=dataclasses.replace(s, pools=(names[i % 4],)), queued=True,
+                                validated=True, pools=(names[i % 4],))
+                            for i, s in enumerate(fresh)])
+            res = algo.schedule(txn, executors, POOL_NOW_NS)
+            decisions.append(([(job.id, run.id, run.node_id) for job, run in res.scheduled],
+                              sorted(job.id for job, _ in res.preempted)))
+            txn.commit()
+        return dict(decisions=decisions, launches=dict(kernels.LAUNCHES))
+    finally:
+        os.environ.pop("ARMADA_POOL_PARALLEL", None)
+        os.environ.pop("ARMADA_COMMIT_K", None)
+
+
+def loop_shapes_path(dev, main: dict) -> dict:
+    """The loop shapes at full width.  K10: the main path's own problem
+    through run_round_on_device with ARMADA_COMMIT_K = 8, which must decide
+    as the K = 1 round did, and K-B at K = 8 against its plain version and
+    timed beside K = 1.  The node-type bias: a 1M-gang synthetic problem
+    with TR > 1 at K = 1 and 8.  Prefer-large: the main problem through
+    run_round_on_device with enablePreferLargeJobOrdering.  The entry points
+    on small worlds: run_scheduling_round with node types and type scores,
+    and both arms of the pools serving loop, at K = 1 and 8."""
+    import torch
+
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch.kernels.round import schedule_round
+    from armada_tpu_torch.models import run_round_on_device, run_scheduling_round
+    from armada_tpu_torch.models.fair_scheduler import round_statics, schedule_round_plain
+    from armada_tpu_torch.models.state import problem_from_numpy
+    from armada_tpu_torch.models.synthetic import synthetic_problem, synthetic_world
+
+    config, problem, ctx, dp = main["config"], main["problem"], main["ctx"], main["dp"]
+    meta = round_meta(ctx)
+    k1_outcome = main["outcome"]
+    report: dict = {}
+
+    # K10 on the main world, through the entry point the serving loop calls
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res8, out8 = _with_commit_k(LOOP_COMMIT_K, lambda: run_round_on_device(
+        problem, ctx, config, device=dev, device_problem=dp))
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for k in ("round", "round_multi_commit", "fair_shares", "compact"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the loop-shapes path")
+    with uncounted():
+        res1, out1 = _with_commit_k(1, lambda: run_round_on_device(
+            problem, ctx, config, device=dev, device_problem=dp))
+    if _outcome_view(out8) != _outcome_view(out1) or \
+            _outcome_view(out1) != _outcome_view(k1_outcome):
+        raise AssertionError("the K = 8 round decides differently from the K = 1 round")
+    max_err(res8, res1._replace(kernel_iters=res8.kernel_iters))
+    iters, trips = int(res8.iterations), int(res8.kernel_iters)
+    if trips >= iters:
+        raise AssertionError(f"K = 8 took {trips} trips for {iters} steps")
+    with uncounted():
+        kw1 = dict(meta, **round_statics(dp, commit_k=1))
+        kw8 = dict(meta, **round_statics(dp, commit_k=LOOP_COMMIT_K))
+        ms = {1: [], LOOP_COMMIT_K: []}
+        for k, kw in ((1, kw1), (LOOP_COMMIT_K, kw8), (LOOP_COMMIT_K, kw8), (1, kw1)):
+            t, r = cuda_ms(lambda kw=kw: schedule_round(dp, **kw), reps=2)
+            ms[k].append(t)
+            if k == LOOP_COMMIT_K:
+                r8 = r
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain8 = schedule_round_plain(dp, **kw8)
+        torch.cuda.synchronize()
+        plain8_ms = (time.perf_counter() - t0) * 1e3
+        max_err(r8, plain8)
+    k1_ms, k8_ms = float(np.mean(ms[1])), float(np.mean(ms[LOOP_COMMIT_K]))
+    report["k10_main"] = dict(entry_s=entry_s, iterations=iters, kernel_iters=trips,
+                              commits_per_trip=iters / trips, k1_ms=ms[1], k8_ms=ms[LOOP_COMMIT_K],
+                              plain8_ms=plain8_ms, k1_us_per_trip=k1_ms * 1e3 / iters,
+                              k8_us_per_trip=k8_ms * 1e3 / trips, launches=launches)
+    log(f"loop shapes [K10, main world]: run_round_on_device at K={LOOP_COMMIT_K} "
+        f"{entry_s:.2f} s, decisions equal K=1; iterations {iters}, kernel_iters {trips} "
+        f"({iters / trips:.2f} commits per trip); K-B {k1_ms:.2f} ms at K=1 "
+        f"({k1_ms * 1e3 / iters:.1f} us a trip), {k8_ms:.2f} ms at K={LOOP_COMMIT_K} "
+        f"({k8_ms * 1e3 / trips:.1f} us a trip); plain K={LOOP_COMMIT_K} on the card "
+        f"{plain8_ms:.0f} ms, equal in every field; launches {launches}")
+
+    # the node-type bias at full width
+    with uncounted():
+        t0 = time.perf_counter()
+        hp, hmeta = synthetic_problem(**HETERO_PROBLEM)
+        hdp = problem_from_numpy(hp, dev)
+        build_s = time.perf_counter() - t0
+        TR = int(hdp.type_bias.shape[0])
+        if TR < 2:
+            raise AssertionError("the full-width hetero problem has no type-sensitive key")
+        het = {}
+        for k in (1, LOOP_COMMIT_K):
+            kw = dict(hmeta, **round_statics(hdp, commit_k=k))
+            t, kres = cuda_ms(lambda kw=kw: schedule_round(hdp, **kw), reps=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pres = schedule_round_plain(hdp, **kw)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            max_err(kres, pres)
+            het[k] = dict(ms=t, plain_ms=pms, iterations=int(kres.iterations),
+                          kernel_iters=int(kres.kernel_iters), result=kres)
+        max_err(het[LOOP_COMMIT_K]["result"]._replace(kernel_iters=het[1]["result"].kernel_iters),
+                het[1]["result"])
+        for v in het.values():
+            v.pop("result")
+    report["hetero"] = dict(TR=TR, build_s=build_s, **{f"K={k}": v for k, v in het.items()})
+    log(f"loop shapes [node-type bias, 1M gangs x 50k nodes, TR={TR}]: kernel == plain at K=1 "
+        f"({het[1]['ms']:.2f} ms, {het[1]['iterations']} iterations) and K={LOOP_COMMIT_K} "
+        f"({het[LOOP_COMMIT_K]['ms']:.2f} ms, {het[LOOP_COMMIT_K]['kernel_iters']} trips); "
+        f"K={LOOP_COMMIT_K} == K=1 but for kernel_iters")
+
+    # prefer-large on the main world, through the entry point
+    pl_config = dataclasses.replace(config, enable_prefer_large_job_ordering=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, pl_out = run_round_on_device(problem, ctx, pl_config, device=dev, device_problem=dp)
+    torch.cuda.synchronize()
+    pl_entry_s = time.perf_counter() - t0
+    if kernels.LAUNCHES["round"] <= 0:
+        raise AssertionError("the prefer-large round did not launch the round kernel")
+    with uncounted():
+        kwp = dict(meta, **round_statics(dp, prefer_large=True))
+        pl_ms, kres = cuda_ms(lambda: schedule_round(dp, **kwp), reps=2)
+        t0 = time.perf_counter()
+        pplain = schedule_round_plain(dp, **kwp)
+        torch.cuda.synchronize()
+        pl_plain_ms = (time.perf_counter() - t0) * 1e3
+        max_err(kres, pplain)
+    report["prefer_large"] = dict(entry_s=pl_entry_s, ms=pl_ms, plain_ms=pl_plain_ms,
+                                  iterations=int(kres.iterations),
+                                  scheduled=len(pl_out.scheduled),
+                                  differs_from_default=_outcome_view(pl_out) != _outcome_view(
+                                      k1_outcome))
+    log(f"loop shapes [prefer-large, main world]: run_round_on_device {pl_entry_s:.2f} s, "
+        f"scheduled {len(pl_out.scheduled)}; K-B {pl_ms:.2f} ms == plain ({pl_plain_ms:.0f} ms) "
+        f"in every field; differs from the default order: "
+        f"{report['prefer_large']['differs_from_default']}")
+
+    # the entry points on small worlds
+    tw = _typed_world(ENTRY_WORLD)
+    tc, tn, tq, ts, tr, _ = tw
+    outs = {k: _with_commit_k(k, lambda: run_scheduling_round(
+        tc, pool="default", nodes=tn, queues=tq, queued_jobs=ts, running=tr, device=dev))
+        for k in (1, LOOP_COMMIT_K)}
+    if _outcome_view(outs[1]) != _outcome_view(outs[LOOP_COMMIT_K]):
+        raise AssertionError("run_scheduling_round with type scores: K = 8 decides differently")
+    if not outs[1].scheduled:
+        raise AssertionError("the typed world scheduled nothing")
+    world = dict(world=synthetic_world(**dict(ENTRY_WORLD, seed=10)))
+    fresh = world["world"][5](400, 1e6)
+    arms = {(par, k): _small_pool_arm(dev, world, fresh, par, k)
+            for par in (True, False) for k in (1, LOOP_COMMIT_K)}
+    base = arms[(False, 1)]["decisions"]
+    for key, arm in arms.items():
+        if arm["decisions"] != base:
+            raise AssertionError(f"pools serving loop {key}: decisions differ from serial K=1")
+    par8 = arms[(True, LOOP_COMMIT_K)]["launches"]
+    if par8["round_stacked"] <= 0 or par8["round_multi_commit"] <= 0:
+        raise AssertionError(f"the parallel arm at K=8 did not stack multi-commit rounds: {par8}")
+    if arms[(False, LOOP_COMMIT_K)]["launches"]["round_multi_commit"] <= 0:
+        raise AssertionError("the serial arm at K=8 ran no multi-commit round")
+    report["entry"] = dict(
+        typed=dict(scheduled=len(outs[1].scheduled), iterations=outs[1].num_iterations,
+                   kernel_iters={k: o.kernel_iters for k, o in outs.items()}),
+        pools={f"{'parallel' if p else 'serial'} K={k}": a["launches"]
+               for (p, k), a in arms.items()})
+    log(f"loop shapes [entry points]: run_scheduling_round with node-type scores decides the "
+        f"same at K=1 and K={LOOP_COMMIT_K} (kernel_iters "
+        f"{outs[1].kernel_iters} -> {outs[LOOP_COMMIT_K].kernel_iters}); FairSchedulingAlgo, "
+        f"4 pools, serial and parallel arms at K=1 and K={LOOP_COMMIT_K}: the same decisions; "
+        f"parallel K={LOOP_COMMIT_K} launches {par8}")
+
+    # the kernels line: K10 is the round's multi-commit body, measured as
+    # the K = 8 round on the main world; its bound is K-B's at K = 8's trips
+    N, R = (int(x) for x in dp.node_total.shape)
+    live_q = int((dp.q_len > 0).sum())
+    per_trip = 2 * N * R * 4 + live_q * 16 * 13
+    io = tensor_bytes(*dp) + tensor_bytes(*res8)
+    bms, by = bound_ms(io + trips * per_trip, trips * 2 * N * R * 6)
+    src, rep = SOURCES["round_multi_commit"]
+    row = dict(name="round_multi_commit", route="cuda", source=src, replaces=rep,
+               launches=launches["round_multi_commit"], max_abs_err=0.0, equal=True, ms=k8_ms,
+               plain_ms=plain8_ms, bound_ms=bms, bound_by=by, library_ms=None)
+    return dict(rows=[row], report=report)
 
 
 # --- the incremental path --------------------------------------------------------
@@ -875,10 +1210,11 @@ POOL_LANES_SYNTH = dict(num_nodes=1_000, num_gangs=6_000, num_queues=40, num_run
 POOL_LANES_EVICT = dict(num_nodes=1_500, num_jobs=15_000, num_queues=32, num_runs=4_000, seed=2)
 
 
-def _stacked_check(name: str, lanes: list, meta: dict, dev) -> dict:
+def _stacked_check(name: str, lanes: list, meta: dict, dev, **statics) -> dict:
     """K-E, K-D, K-F, K-I stacked and K-G on `lanes` (device problems of one
     shape) against their plain versions on the card, and K-D's lanes
-    against the solo round (K-B)."""
+    against the solo round (K-B), every round at the loop shape `statics`
+    asks for."""
     import torch
 
     from armada_tpu_torch.kernels import lanes as KL
@@ -890,14 +1226,14 @@ def _stacked_check(name: str, lanes: list, meta: dict, dev) -> dict:
     from armada_tpu_torch.kernels.verify import verify_round_stacked
     from armada_tpu_torch.models import verify as V
     from armada_tpu_torch.models.fair_scheduler import (
-        resolve_round_statics, schedule_round_stacked_plain,
+        round_statics, schedule_round_stacked_plain,
     )
     from armada_tpu_torch.models.problem import COMPACT_ECAP, COMPACT_FCAP
 
     P = len(lanes)
     st = KL.stack(lanes)
     problems_equal(st, KL.stack_plain(lanes), f"{name}: K-E vs torch.stack")
-    kw = dict(meta, max_iterations=resolve_round_statics(st))
+    kw = dict(meta, **round_statics(st, **statics))
     k = stacked_kernel(st, **kw)
     torch.cuda.synchronize()
     p = schedule_round_stacked_plain(st, **kw)
@@ -921,10 +1257,13 @@ def _stacked_check(name: str, lanes: list, meta: dict, dev) -> dict:
     ])
     max_err(ki, ki_plain)
     info = dict(lanes=P, iterations=[int(x) for x in k.iterations],
+                kernel_iters=[int(x) for x in k.kernel_iters],
                 scheduled=[int(x) for x in k.scheduled_count],
                 evicted=[int(x.sum()) for x in k.run_evicted],
                 rescheduled=[int(x.sum()) for x in k.run_rescheduled])
-    log(f"K-D/K-E/K-F/K-G/K-I stacked [{name}]: kernels == plain, lanes == solo K-B {info}")
+    shape = " ".join(f"{a}={b}" for a, b in statics.items())
+    log(f"K-D/K-E/K-F/K-G/K-I stacked [{name}{' ' + shape if shape else ''}]: kernels == plain, "
+        f"lanes == solo K-B {info}")
     return info
 
 
@@ -955,27 +1294,18 @@ def check_pool_kernels(dev) -> dict:
         lanes.append(problem_from_numpy(prob, dev))
     out["gangs"] = _stacked_check("gang lanes", lanes, meta, dev)
     base, ctx = world_problem(POOL_LANES_EVICT, protected=0.0)
-    dp = problem_from_numpy(base, dev)
-    lanes = [dp]
-    for i in (1, 2, 3):
-        r = np.random.default_rng(100 + i)
-        lanes.append(dp._replace(
-            q_weight=torch.roll(dp.q_weight, i),
-            node_ok=dp.node_ok & torch.as_tensor(r.random(dp.node_ok.shape[0]) > 0.05 * i,
-                                                 device=dev),
-            g_valid=dp.g_valid & torch.as_tensor(r.random(dp.g_valid.shape[0]) > 0.1 * i,
-                                                 device=dev),
-        ))
+    lanes = _lanes_of(problem_from_numpy(base, dev), 4)
     out["evict"] = _stacked_check("eviction lanes", lanes, round_meta(ctx), dev)
     if min(out["evict"]["evicted"]) == 0 or min(out["evict"]["rescheduled"]) == 0:
         raise AssertionError(f"the eviction lanes must evict and reschedule: {out['evict']}")
     return out
 
 
-def pools_world(world: dict, dev):
-    """(config, jdb, feed, algo, executors, specs_by_pool) for the 8-pool
-    split of the main world, its 1M jobs and 25k runs loaded through a
-    JobDb with an IncrementalProblemFeed attached."""
+def pools_world(world: dict, dev, pool_nodes=POOL_NODES, bucket: int = POOL_BUCKET):
+    """(config, jdb, feed, algo, executors, names) for `world` split into
+    pools of `pool_nodes` nodes each (the main world's 8-pool split by
+    default), its jobs and runs loaded through a JobDb with an
+    IncrementalProblemFeed attached."""
     from armada_tpu_torch.core.config import PoolConfig
     from armada_tpu_torch.jobdb.job import Job, JobRun
     from armada_tpu_torch.jobdb.jobdb import JobDb
@@ -984,15 +1314,15 @@ def pools_world(world: dict, dev):
     from armada_tpu_torch.scheduler.incremental_algo import IncrementalProblemFeed
 
     config, nodes, queues, specs, running, _ = world["world"]
-    names = [f"pool{i}" for i in range(len(POOL_NODES))]
+    names = [f"pool{i}" for i in range(len(pool_nodes))]
     cfg = dataclasses.replace(
-        config, pools=tuple(PoolConfig(n) for n in names), shape_bucket=POOL_BUCKET,
+        config, pools=tuple(PoolConfig(n) for n in names), shape_bucket=bucket,
         incremental_problem_build=True,
         # unlimited rate buckets (bench.py's pools arm): at these backlogs
         # armed buckets always bind and the cycle stays serial
         maximum_scheduling_rate=0.0, maximum_per_queue_scheduling_rate=0.0,
     )
-    starts = np.concatenate([[0], np.cumsum(POOL_NODES)])
+    starts = np.concatenate([[0], np.cumsum(pool_nodes)])
     if starts[-1] != len(nodes):
         raise AssertionError(f"the pools split {starts[-1]} nodes, the world has {len(nodes)}")
     pool_nodes = [
@@ -1353,6 +1683,7 @@ def main() -> int:
     report["fair_shares"] = check_fair_shares(dev)
     check_compact(dev)
     pools_small = check_pool_kernels(dev)
+    loop_small = check_loop_kernels(dev)
     sp, meta = synthetic_problem(**KB_SYNTH)
     report["round_synthetic"] = check_round("synthetic_problem", sp, meta, dev)
     mp, mctx = world_problem(KB_MARKET)
@@ -1385,7 +1716,11 @@ def main() -> int:
     log(f"main path: world built in {world['seconds']:.1f} s")
     mp_report = main_path(dev, world)
     main_outcome = mp_report.pop("outcome")
+    main_state = mp_report.pop("state")
     report.update(mp_report)
+    loop = loop_shapes_path(dev, main_state)
+    report["loop_shapes"] = dict(small=loop_small, **loop["report"])
+    del main_state
     inc = incremental_path(dev, world, main_outcome)
     report["incremental"] = inc
     pools = pools_path(dev, world, pools_small)
@@ -1395,7 +1730,7 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
-    print(json.dumps({"kernels": mp_report["rows"] + inc["rows"] + pools["rows"]}))
+    print(json.dumps({"kernels": mp_report["rows"] + loop["rows"] + inc["rows"] + pools["rows"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """The port's plain scheduling round against the JAX package's round.
 
 Identical numpy problems go to `armada_tpu.models.fair_scheduler.
-schedule_round` -- called with the loop shape the port implements
-(cache_slots=0, batch_k=1, commit_k=1, unroll=1) -- and to
+schedule_round` -- called with the single-commit uncached loop shape
+(cache_slots=0, batch_k=1, commit_k=1, unroll=1; the other shapes are in
+tests/test_torch_loop_shapes.py) -- and to
 `armada_tpu_torch.models.fair_scheduler.schedule_round(device="cpu")`.
 Every RoundResult field except kernel_iters must be equal, f32 fields bit
 for bit, and so must the packed decode buffers.
@@ -167,13 +168,10 @@ def test_problem_from_numpy_keeps_fields():
 
 
 def test_unported_statics_raise():
+    """K11's decision-neutral variants (the per-key fit cache, the batch_k
+    pick chain, unroll) are not ported and raise; prefer_large, commit_k > 1
+    and TR > 1 are ported (tests/test_torch_loop_shapes.py)."""
     problem, meta = jax_synthetic(**SYNTH, max_gang_cardinality=1, seed=0)
-    for kw in (dict(prefer_large=True), dict(commit_k=4), dict(batch_k=8),
-               dict(cache_slots=64), dict(unroll=2)):
+    for kw in (dict(batch_k=8), dict(cache_slots=64), dict(unroll=2)):
         with pytest.raises(NotImplementedError):
             schedule_round(problem, **meta, **kw, device="cpu")
-    hetero, hmeta = jax_synthetic(**SYNTH, max_gang_cardinality=1, seed=0,
-                                  type_sensitive_frac=0.5)
-    assert hetero.type_bias.shape[0] > 1
-    with pytest.raises(NotImplementedError):
-        schedule_round(hetero, **hmeta, device="cpu")
