@@ -9,6 +9,7 @@ kernel can be specialised (config values are static for a round).
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Mapping, Optional
 
 from armada_tpu_torch.core.resources import ResourceListFactory
@@ -274,3 +275,197 @@ class SchedulingConfig:
 
 def default_scheduling_config() -> SchedulingConfig:
     return SchedulingConfig()
+
+
+def _parse_priority_classes(d: Mapping) -> dict[str, PriorityClass]:
+    out = {}
+    for name, spec in d.items():
+        out[name] = PriorityClass(
+            name=name,
+            priority=int(spec["priority"]),
+            preemptible=bool(spec.get("preemptible", False)),
+            maximum_resource_fraction_per_queue=dict(
+                spec.get("maximumResourceFractionPerQueue", {})
+            ),
+        )
+    return out
+
+
+_DURATION_RE = re.compile(r"([0-9]*\.?[0-9]+)\s*(ms|s|m|h|d|)")
+_DURATION_UNITS = {"ms": 1e-3, "s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0, "": 1.0}
+
+
+def parse_duration_s(d) -> float:
+    """'5m', '90s', '1h30m', '300ms', bare numbers (seconds) -> seconds.
+    The one duration parser (simulator specs and config share it)."""
+    if d is None:
+        return 0.0
+    if isinstance(d, (int, float)):
+        return float(d)
+    s = str(d).strip()
+    if not s:
+        return 0.0
+    pos = 0
+    total = 0.0
+    for m in _DURATION_RE.finditer(s):
+        if m.start() != pos:
+            raise ValueError(f"invalid duration: {d!r}")
+        total += float(m.group(1)) * _DURATION_UNITS[m.group(2)]
+        pos = m.end()
+    if pos != len(s):
+        raise ValueError(f"invalid duration: {d!r}")
+    return total
+
+
+def _parse_tolerations(entries) -> tuple:
+    """k8s-style toleration dicts -> core Toleration tuple."""
+    from armada_tpu_torch.core.types import Toleration
+
+    return tuple(
+        Toleration(
+            key=t.get("key", ""),
+            operator=t.get("operator", "Equal"),
+            value=t.get("value", ""),
+            effect=t.get("effect", ""),
+        )
+        for t in entries
+    )
+
+
+def scheduling_config_from_dict(d: Mapping) -> SchedulingConfig:
+    """Build a SchedulingConfig from a parsed YAML mapping using the reference's
+    key names (config/scheduler/config.yaml `scheduling:` block).
+
+    Top-level keys match case-insensitively: the ARMADA_* env overlay
+    (apply_env_overlay) can only spell keys in one case, and viper's own
+    lookups are case-insensitive too."""
+    lowered = {(k.lower() if isinstance(k, str) else k): v for k, v in d.items()}
+
+    class _CI:
+        def __contains__(self, key):
+            return key.lower() in lowered
+
+        def __getitem__(self, key):
+            return lowered[key.lower()]
+
+    d = _CI()  # type: ignore[assignment]
+    kw: dict = {}
+    if "supportedResourceTypes" in d:
+        kw["supported_resource_types"] = tuple(
+            (r["name"], str(r.get("resolution", "1"))) for r in d["supportedResourceTypes"]
+        )
+    if "pools" in d:
+        kw["pools"] = tuple(
+            PoolConfig(
+                p["name"],
+                tuple(p.get("awayPools", [])),
+                market_driven=bool(p.get("marketDriven", False)),
+                short_job_penalty_cutoff_s=parse_duration_s(
+                    p.get("shortJobPenaltyCutoff", 0)
+                ),
+                spot_price_cutoff=float(p.get("spotPriceCutoff", 0.9)),
+                gangs_to_price=tuple(
+                    (
+                        name,
+                        GangDefinition(
+                            size=int(g.get("size", 1)),
+                            priority_class=g.get("priorityClassName", ""),
+                            resources=dict(g.get("resources", {})),
+                            node_selector=dict(g.get("nodeSelector", {})),
+                            tolerations=_parse_tolerations(
+                                g.get("tolerations", ())
+                            ),
+                            node_uniformity=g.get("nodeUniformity", ""),
+                        ),
+                    )
+                    for name, g in p.get("gangsToPrice", {}).items()
+                ),
+            )
+            for p in d["pools"]
+        )
+    if "priorityClasses" in d:
+        kw["priority_classes"] = _parse_priority_classes(d["priorityClasses"])
+    for yaml_key, attr in [
+        ("defaultPriorityClassName", "default_priority_class"),
+        ("nodeQuarantineWindow", "node_quarantine_window_s"),
+        ("nodeQuarantineCooldown", "node_quarantine_cooldown_s"),
+        ("protectedFractionOfFairShare", "protected_fraction_of_fair_share"),
+        ("maxQueueLookback", "max_queue_lookback"),
+        ("maximumSchedulingBurst", "maximum_scheduling_burst"),
+        ("maximumPerQueueSchedulingBurst", "maximum_per_queue_scheduling_burst"),
+        ("maximumSchedulingRate", "maximum_scheduling_rate"),
+        ("maximumPerQueueSchedulingRate", "maximum_per_queue_scheduling_rate"),
+        ("maxRetries", "max_retries"),
+        ("nodeIdLabel", "node_id_label"),
+        ("shapeBucket", "shape_bucket"),
+        ("enableAssertions", "enable_assertions"),
+        ("disableScheduling", "disable_scheduling"),
+        ("incrementalProblemBuild", "incremental_problem_build"),
+        (
+            "maxJobSchedulingContextsPerExecutor",
+            "max_job_scheduling_contexts_per_executor",
+        ),
+        ("enablePreferLargeJobOrdering", "enable_prefer_large_job_ordering"),
+        ("executorTimeout", "executor_timeout_s"),
+        ("jobStateMetricsResetInterval", "job_state_metrics_reset_interval_s"),
+        ("maxUnacknowledgedJobsPerExecutor", "max_unacknowledged_jobs_per_executor"),
+        ("publishMetricEvents", "publish_metric_events"),
+        ("nodeQuarantineFailureThreshold", "node_quarantine_failure_threshold"),
+        ("optimiserEnabled", "optimiser_enabled"),
+        ("optimiserMaxStuckJobs", "optimiser_max_stuck_jobs"),
+        ("optimiserMaximumJobSizeToPreempt", "optimiser_maximum_job_size_to_preempt"),
+    ]:
+        if yaml_key in d:
+            kw[attr] = d[yaml_key]
+    for attr in (
+        "node_quarantine_window_s",
+        "node_quarantine_cooldown_s",
+        "executor_timeout_s",
+        "job_state_metrics_reset_interval_s",
+    ):
+        if attr in kw:
+            kw[attr] = parse_duration_s(kw[attr])
+    if "dominantResourceFairnessResourcesToConsider" in d:
+        kw["dominant_resource_fairness_resources"] = tuple(
+            d["dominantResourceFairnessResourcesToConsider"]
+        )
+    if "maximumResourceFractionToSchedule" in d:
+        kw["maximum_resource_fraction_to_schedule"] = dict(
+            d["maximumResourceFractionToSchedule"]
+        )
+    if "experimentalIndicativeShare" in d:
+        base = tuple(
+            int(p) for p in d["experimentalIndicativeShare"].get("basePriorities", ())
+        )
+        bad = [p for p in base if p <= 0]
+        if bad:
+            raise ValueError(
+                f"experimentalIndicativeShare.basePriorities must be positive: {bad}"
+            )
+        kw["indicative_share_base_priorities"] = base
+    if "indexedNodeLabels" in d:
+        kw["indexed_node_labels"] = tuple(d["indexedNodeLabels"])
+    if "indexedTaints" in d:
+        kw["indexed_taints"] = tuple(d["indexedTaints"])
+    if "floatingResources" in d:
+        kw["floating_resources"] = tuple(
+            FloatingResource(
+                name=fr["name"],
+                resolution=str(fr.get("resolution", "1")),
+                pools={
+                    p["name"]: p["quantity"] for p in fr.get("pools", [])
+                },
+            )
+            for fr in d["floatingResources"]
+        )
+    return SchedulingConfig(**kw)
+
+
+def scheduling_config_from_yaml(path: str) -> SchedulingConfig:
+    import yaml
+
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    if "scheduling" in doc:
+        doc = doc["scheduling"]
+    return scheduling_config_from_dict(doc)

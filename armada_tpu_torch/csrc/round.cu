@@ -3,12 +3,14 @@
 // Replaces the JAX package's models/fair_scheduler.py `_schedule_round_jit`
 // (with `_make_place_iteration`, `_phase_b`, `_move_runs_to_evicted`,
 // `_fit_row`, and ops/fit.py, ops/packing.py, ops/fairness.py inlined), at
-// every decision-bearing loop shape of the uncached body (cache_slots=0,
-// batch_k=1, unroll=1): the node-type bias (TR > 1), prefer-large ordering,
-// and the multi-commit extension at any commit_k up to MAX_COMMIT_K (K10,
-// `_make_place_iteration` fair_scheduler.py:773-1016).  Plain version:
-// armada_tpu_torch/models/fair_scheduler.py `schedule_round_plain` and
-// `_extension`, which this file follows step by step.
+// every loop shape: the node-type bias (TR > 1), prefer-large ordering, the
+// multi-commit extension at any commit_k up to MAX_COMMIT_K (K10,
+// `_make_place_iteration` fair_scheduler.py:773-1016), and K11: the per-key
+// fit cache (:515-600, :1017-1079), the certified pick chain up to
+// MAX_BATCH_K (:1081-1480) and unroll (:1960).  Plain version:
+// armada_tpu_torch/models/fair_scheduler.py `schedule_round_plain`,
+// `_extension`, `_FitCache` and `_pick_chain`, which this file follows step
+// by step.
 //
 // What bounds it on this card.  The placement loop is sequential: up to
 // 2G + Q + 8 iterations, each deciding one gang (or retiring queue heads).
@@ -73,6 +75,14 @@
 #define EXT_BLOCK 640
 #endif
 static_assert(EXT_BLOCK <= ARMADA_BLOCK && EXT_BLOCK % 32 == 0,
+              "the per-warp tables are sized for ARMADA_BLOCK threads");
+// Threads of the pick-chain instantiation (batch_k > 1): at 1,024 threads
+// (64 registers) its replay state spills 84-120 bytes, at 768 (80
+// registers) 32-40 bytes (ptxas -v, sm_90a).
+#ifndef BK_BLOCK
+#define BK_BLOCK 640
+#endif
+static_assert(BK_BLOCK <= ARMADA_BLOCK && BK_BLOCK % 32 == 0 && BK_BLOCK >= 64,
               "the per-warp tables are sized for ARMADA_BLOCK threads");
 // Prefer-large ordering: the offset that lifts over-budget queues' keys
 // (fair_scheduler.py _PL_OVER), added in f32.
@@ -155,21 +165,41 @@ struct RoundArgs {
     int* rmin;                 // [N] phase B scratch
     float* cost;               // [RJ] phase B scratch
     int* scal;                 // [8]: n_slots, iterations, termination,
-                               //      sched_count, done, kernel_iters
+                               //      sched_count, done, kernel_iters,
+                               //      the fit cache's hits and misses
     // node-type bias, prefer-large and multi-commit inputs
     const float* type_bias;    // [TR, T]
     const int* key_type_row;   // [K]
     const int* g_queue;        // [G]
     float* okey;               // [Q] scratch: the iteration's order keys
     int* q_nskip;              // [Q] scratch: the iteration's cursor skips
-    // shapes and statics; BR = ban rows, P = lanes, TR = bias rows
+    // the per-key fit cache (CS slots; empty when CS = 0)
+    u8* fitc_clean;            // [CS, N] fit rows at the clean level
+    u8* fitc_lvl;              // [CS, N] fit rows at the slot's level
+    float* cscore;             // [P1, N] packing score of every level's row
+    float* bmc_clean;          // [CS, N / CB] block minima of the masked scores
+    float* bmc_lvl;            // [CS, N / CB]
+    int* cslot_key;            // [CS] the slot's key (-1: empty)
+    int* cslot_lvl;            // [CS]
+    float* cslot_req;          // [CS, R]
+    // the pick chain's scratch (empty when batch_k = 1)
+    float* bk_m0;              // [N] masked clean-level scores of the row cache
+    float* bk_ml;              // [N] masked own-level scores
+    u8* bk_fit0;               // [N]
+    u8* bk_fitl;               // [N]
+    float* sim_keys;           // [Q] simulated order keys
+    int* simpos;               // [Q] simulated window positions
+    float* sim_row;            // [Q, R] simulated queue allocations
+    // shapes and statics; BR = ban rows, P = lanes, TR = bias rows, CS =
+    // cache slots, CB = the cache's block size
     int N, R, G, Q, RJ, K, T, C, P1, S, W, max_iter, BR, P;
-    int TR, prefer_large, commit_k;
+    int TR, prefer_large, commit_k, CS, CB, batch_k, unroll;
 };
 
 // scal is [8, P]: slot k of lane l at scal[k * P + l] (a contiguous [P]
 // row per slot for the stacked result).
-enum { SC_NSLOTS = 0, SC_ITERS = 1, SC_TERM = 2, SC_SCHED = 3, SC_DONE = 4, SC_KITERS = 5 };
+enum { SC_NSLOTS = 0, SC_ITERS = 1, SC_TERM = 2, SC_SCHED = 3, SC_DONE = 4, SC_KITERS = 5,
+       SC_CHITS = 6, SC_CMISSES = 7 };
 
 // Lane l of a stacked round: every lane has lane 0's shapes, so each array
 // of lane l starts l x (its per-lane element count) past lane 0's.
@@ -252,6 +282,23 @@ static __device__ __forceinline__ RoundArgs lane_of(RoundArgs a, long long l) {
     a.g_queue += l * G;
     a.okey += l * Q;
     a.q_nskip += l * Q;
+    const long long CSN = (long long)a.CS * N, NBS = (long long)a.CS * (N / a.CB);
+    a.fitc_clean += l * CSN;
+    a.fitc_lvl += l * CSN;
+    a.cscore += l * (long long)a.P1 * N;
+    a.bmc_clean += l * NBS;
+    a.bmc_lvl += l * NBS;
+    a.cslot_key += l * a.CS;
+    a.cslot_lvl += l * a.CS;
+    a.cslot_req += l * (long long)a.CS * R;
+    const long long BN = a.batch_k > 1 ? N : 0, BQ = a.batch_k > 1 ? Q : 0;
+    a.bk_m0 += l * BN;
+    a.bk_ml += l * BN;
+    a.bk_fit0 += l * BN;
+    a.bk_fitl += l * BN;
+    a.sim_keys += l * BQ;
+    a.simpos += l * BQ;
+    a.sim_row += l * BQ * R;
     return a;
 }
 
@@ -430,6 +477,9 @@ struct LoopShared {
     float req[MAX_R], req_node[MAX_R], req_tot[MAX_R], req_float[MAX_R];
     // the fit
     int fit_feasible;
+    // the fit cache: the pick is a cacheable single; its slot; a hit; the
+    // round's hits and misses
+    int cacheable, cslot, chit, nhits, nmisses;
 };
 
 // The multi-commit extension's tables (fair_scheduler.py:773-1016): pick e
@@ -453,6 +503,25 @@ __device__ __forceinline__ int gq_at(const RoundArgs& a, long long idx) {
     if (idx < 0) idx = 0;
     if (idx > a.G - 1) idx = a.G - 1;
     return a.gq_gang[idx];
+}
+
+// The first parked (undecided) window entry of queue q at or after index i,
+// SKIP_WINDOW if none; the window starts at the iteration's head before its
+// skip (q_head - q_nskip).
+static __device__ int next_parked(const RoundArgs& a, int q, int i, int* gang) {
+    const int len = a.q_len[q], start = a.q_start[q];
+    const int head0 = a.q_head[q] - a.q_nskip[q];
+    for (; i < SKIP_WINDOW; ++i) {
+        const int off = head0 + i;
+        if (off >= len) break;
+        const int gg = gq_at(a, (long long)start + off);
+        const int kk = a.g_key[gg];
+        if (!(a.g_state[gg] != 0 || (kk >= 0 && a.key_bad[kk]))) {
+            *gang = gg;
+            return i;
+        }
+    }
+    return SKIP_WINDOW;
 }
 
 // itemSize of prefer-large: the gang's unweighted DRF cost times its
@@ -543,18 +612,8 @@ static __device__ void extension(const RoundArgs& a, LoopShared& sh, ExtShared& 
         const int len = a.q_len[q], start = a.q_start[q];
         const int headn = a.q_head[q], nsk = a.q_nskip[q];
         const int head0 = headn - nsk;
-        int npos = SKIP_WINDOW, gnext = 0;
-        for (int i = nsk + 1; i < SKIP_WINDOW; ++i) {
-            const int off = head0 + i;
-            if (off >= len) break;
-            const int gg = gq_at(a, (long long)start + off);
-            const int kk = a.g_key[gg];
-            if (!(a.g_state[gg] != 0 || (kk >= 0 && a.key_bad[kk]))) {
-                npos = i;
-                gnext = gg;
-                break;
-            }
-        }
+        int gnext = 0;
+        const int npos = next_parked(a, q, nsk + 1, &gnext);
         float nkv;
         if (npos < SKIP_WINDOW) {
             const bool next_new = a.g_run[gnext] < 0;
@@ -760,21 +819,537 @@ static __device__ void extension(const RoundArgs& a, LoopShared& sh, ExtShared& 
     }
 }
 
+// --- K11: the per-key fit cache ------------------------------------------------
+//
+// (fair_scheduler.py:515-600, :1017-1079; plain version `_FitCache`.)  Slot
+// s = key % CS holds one (key, level, request)'s fit rows at the clean
+// level and at its own level, in global memory (L2-resident at the
+// reference scale: ~7.8 MB at CS = 64, N = 57,344), and their block minima
+// over blocks of CB nodes; cscore holds every level's packing score.  A
+// hit reads NB = N / CB block minima and one block of CB nodes instead of
+// the node pass.  The tables are exact: a miss refills the slot from one
+// node pass, and after every commit the touched nodes' scores, every
+// slot's fit bits there and the touched blocks' minima are re-derived.
+
+// The cached pick of a cacheable single; every thread calls it.
+static __device__ void cached_pick(const RoundArgs& a, LoopShared& sh, int* nodes_w, int* counts_w,
+                                   ArgMin* red) {
+    const int tid = threadIdx.x;
+    const int R = a.R, N = a.N, CB = a.CB, NB = N / CB;
+    const long long NR = (long long)N * R;
+    if (tid == 0) {
+        const int s = sh.key % a.CS;
+        bool hit = a.cslot_key[s] == sh.key && a.cslot_lvl[s] == sh.level;
+        for (int r = 0; r < R; ++r) hit &= a.cslot_req[s * R + r] == sh.req_node[r];
+        sh.cslot = s;
+        sh.chit = hit;
+        if (hit) ++sh.nhits;
+        else ++sh.nmisses;
+    }
+    __syncthreads();
+    const int s = sh.cslot, level = sh.level;
+    const u8* fitc;
+    const float* score;
+    ArgMin b{ARMADA_INF, ARMADA_BIGI, 0};
+    if (sh.chit) {
+        // the first block attaining the least block minimum, clean level
+        // first, then the first node attaining it inside the block
+        const float* bm0 = a.bmc_clean + (long long)s * NB;
+        for (int i = tid; i < NB; i += blockDim.x) b = argmin_pick(b, ArgMin{bm0[i], i, 0});
+        b = block_argmin(b, red);
+        fitc = a.fitc_clean;
+        score = a.cscore;
+        if (!(b.v < ARMADA_INF)) {
+            const float* bml = a.bmc_lvl + (long long)s * NB;
+            b = ArgMin{ARMADA_INF, ARMADA_BIGI, 0};
+            for (int i = tid; i < NB; i += blockDim.x) b = argmin_pick(b, ArgMin{bml[i], i, 0});
+            b = block_argmin(b, red);
+            fitc = a.fitc_lvl;
+            score = a.cscore + (long long)level * N;
+        }
+        const bool found = b.v < ARMADA_INF;
+        const int lo = (found ? b.i : 0) * CB;
+        ArgMin j{ARMADA_INF, ARMADA_BIGI, 0};
+        if (tid < CB) {
+            const int n = lo + tid;
+            j = ArgMin{fitc[(long long)s * N + n] ? score[n] : ARMADA_INF, n, 0};
+        }
+        j = block_argmin(j, red);
+        b = found ? ArgMin{j.v, j.i, 0} : ArgMin{ARMADA_INF, ARMADA_BIGI, 0};
+    } else {
+        // a miss: one node pass fills the slot's rows and takes the pick
+        const int key = sh.key;
+        const float* al0 = a.alloc;
+        const float* all = a.alloc + (long long)level * NR;
+        u8* fc_row = a.fitc_clean + (long long)s * N;
+        u8* fl_row = a.fitc_lvl + (long long)s * N;
+        const float* sc0 = a.cscore;
+        const float* scl = a.cscore + (long long)level * N;
+        ArgMin bc{ARMADA_INF, ARMADA_BIGI, 0}, bl{ARMADA_INF, ARMADA_BIGI, 0};
+        for (int n = tid; n < N; n += blockDim.x) {
+            const bool ok = a.compat[(long long)key * a.T + a.node_type[n]] && a.node_ok[n];
+            const bool fc = ok && fits_row(al0 + (long long)n * R, sh.req_node, R);
+            const bool fl = ok && fits_row(all + (long long)n * R, sh.req_node, R);
+            fc_row[n] = fc;
+            fl_row[n] = fl;
+            if (fc) bc = argmin_pick(bc, ArgMin{sc0[n], n, 0});
+            if (fl) bl = argmin_pick(bl, ArgMin{scl[n], n, 0});
+        }
+        bc = block_argmin(bc, red);
+        bl = block_argmin(bl, red);
+        float* bm0 = a.bmc_clean + (long long)s * NB;
+        float* bml = a.bmc_lvl + (long long)s * NB;
+        for (int i = tid; i < NB; i += blockDim.x) {
+            float m0 = ARMADA_INF, ml = ARMADA_INF;
+            for (int k = 0; k < CB; ++k) {
+                const int n = i * CB + k;
+                if (fc_row[n] && sc0[n] < m0) m0 = sc0[n];
+                if (fl_row[n] && scl[n] < ml) ml = scl[n];
+            }
+            bm0[i] = m0;
+            bml[i] = ml;
+        }
+        if (tid == 0) {
+            a.cslot_key[s] = key;
+            a.cslot_lvl[s] = level;
+            for (int r = 0; r < R; ++r) a.cslot_req[s * R + r] = sh.req_node[r];
+        }
+        b = bc.v < ARMADA_INF ? bc : bl;
+    }
+    if (tid == 0) {
+        const bool found = b.v < ARMADA_INF;
+        for (int w = 0; w < a.W; ++w) {
+            nodes_w[w] = N;
+            counts_w[w] = 0;
+        }
+        nodes_w[0] = found ? b.i : N;
+        counts_w[0] = found ? 1 : 0;
+        sh.fit_feasible = found;
+    }
+    __syncthreads();
+}
+
+// The cache's upkeep after a step's commits: the touched nodes are the
+// head's spread (nodes_w, N = unused) and the multi-commit picks
+// (ext.node[0, n_ext)).  Every thread calls it.
+static __device__ void cache_upkeep(const RoundArgs& a, const int* nodes_w, const int* ext_node,
+                                    int n_ext) {
+    const int tid = threadIdx.x;
+    const int R = a.R, N = a.N, W = a.W, CB = a.CB, NB = N / CB, CS = a.CS;
+    const long long NR = (long long)N * R;
+    const int T = W + n_ext;
+    // (1) every level's score at the touched nodes
+    for (int i = tid; i < T * a.P1; i += blockDim.x) {
+        const int t = i / a.P1, l = i % a.P1;
+        const int n = t < W ? nodes_w[t] : ext_node[t - W];
+        if (n >= N) continue;
+        a.cscore[(long long)l * N + n] = packing_score(a.alloc + l * NR + (long long)n * R, a.inv_scale, R);
+    }
+    // (2) every slot's fit bits there
+    for (int i = tid; i < CS * T; i += blockDim.x) {
+        const int sl = i / T, t = i % T;
+        const int n = t < W ? nodes_w[t] : ext_node[t - W];
+        if (n >= N) continue;
+        const int key = a.cslot_key[sl];
+        const float* req = a.cslot_req + sl * R;
+        const bool ok = key >= 0 && a.compat[(long long)key * a.T + a.node_type[n]] && a.node_ok[n];
+        a.fitc_clean[(long long)sl * N + n] = ok && fits_row(a.alloc + (long long)n * R, req, R);
+        a.fitc_lvl[(long long)sl * N + n] =
+            ok && fits_row(a.alloc + a.cslot_lvl[sl] * NR + (long long)n * R, req, R);
+    }
+    __syncthreads();
+    // (3) the touched blocks' minima, from the patched bits and scores
+    for (int i = tid; i < CS * T; i += blockDim.x) {
+        const int sl = i / T, t = i % T;
+        const int n = t < W ? nodes_w[t] : ext_node[t - W];
+        if (n >= N) continue;
+        const int blk = n / CB;
+        const u8* f0 = a.fitc_clean + (long long)sl * N + (long long)blk * CB;
+        const u8* fl = a.fitc_lvl + (long long)sl * N + (long long)blk * CB;
+        const float* s0 = a.cscore + (long long)blk * CB;
+        const float* sl_ = a.cscore + (long long)a.cslot_lvl[sl] * N + (long long)blk * CB;
+        float m0 = ARMADA_INF, ml = ARMADA_INF;
+        for (int k = 0; k < CB; ++k) {
+            if (f0[k] && s0[k] < m0) m0 = s0[k];
+            if (fl[k] && sl_[k] < ml) ml = sl_[k];
+        }
+        a.bmc_clean[(long long)sl * NB + blk] = m0;
+        a.bmc_lvl[(long long)sl * NB + blk] = ml;
+    }
+    __syncthreads();
+}
+
+// --- K11: the certified pick chain (batch_k > 1) ----------------------------------
+//
+// (fair_scheduler.py:1081-1480; plain version `_pick_chain` and
+// `_commit_chain`.)  After the head placed, replay the sequential loop's
+// next batch_k - 1 steps on [Q] state -- each live queue's simulated order
+// key and window position -- against the post-head state, and commit the
+// prefix it can prove.  Each sub-pick is one block argmin over the live
+// queues, one node pass (or, for the same key, level, bans and request as
+// the previous pick, a pass over the rows that pick stored), and scalar
+// checks on thread 0 against the earlier picks' deltas at their nodes.
+#define MAX_BATCH_K 16
+#define MAX_CHAIN (MAX_BATCH_K - 1)
+
+struct ChainShared {
+    int n;  // picks proven so far
+    int q[MAX_CHAIN], g[MAX_CHAIN], node[MAX_CHAIN], lo[MAX_CHAIN], level[MAX_CHAIN];
+    int pc[MAX_CHAIN], run[MAX_CHAIN];
+    float req[MAX_CHAIN][MAX_R], reqn[MAX_CHAIN][MAX_R], flt[MAX_CHAIN][MAX_R];
+    // the running state after the picks
+    int r_count, r_iter;
+    float r_res[MAX_R], r_float[MAX_R], r_spot_res[MAX_R], r_spot;
+    // the current sub-pick
+    int stop, qj, ij, cg, ev, lvl, pc_j, key, ban, run_j, trow, match, node_j;
+    float cur_req[MAX_R], cur_reqn[MAX_R], cur_flt[MAX_R];
+    // the row cache: the rows in bk_* belong to (key, level, ban, request)
+    int rc_valid, rc_key, rc_lvl, rc_ban;
+    long long rc_n0;
+    float rc_req[MAX_R];
+};
+
+// Queue q's simulated order key with its next candidate at window index
+// npos (gang gn), after sim_row.
+static __device__ float sim_key(const RoundArgs& a, const LoopShared& sh, bool market, int q,
+                                int npos, int gn) {
+    if (npos >= SKIP_WINDOW) {
+        const int head0 = a.q_head[q] - a.q_nskip[q];
+        return head0 + SKIP_WINDOW - 1 >= a.q_len[q] ? ARMADA_INF : -ARMADA_INF;
+    }
+    const bool allowed = !(a.g_run[gn] < 0 && (sh.new_blocked || a.q_killed[q])) && a.q_weight[q] > 0.0f;
+    if (!allowed) return ARMADA_INF;
+    if (market) return -a.g_price[gn];
+    const int R = a.R;
+    const float cardf = (float)a.g_card[gn];
+    float x[MAX_R];
+    for (int r = 0; r < R; ++r)
+        x[r] = __fadd_rn(__fadd_rn(a.sim_row[q * R + r], a.q_penalty[q * R + r]),
+                         __fmul_rn(a.g_req[(long long)gn * R + r], cardf));
+    return drf_weighted(x, a.total_pool, a.drf_mult, a.q_weight[q], R);
+}
+
+// The earlier picks' requests committed at (lvl, node), summed in pick order.
+static __device__ __forceinline__ void chain_adjusted(const RoundArgs& a, const ChainShared& ch, int node,
+                                                     int lvl, float* out) {
+    const int R = a.R;
+    float d[MAX_R];
+    for (int r = 0; r < R; ++r) d[r] = 0.0f;
+    for (int k = 0; k < ch.n; ++k)
+        if (ch.node[k] == node && ch.lo[k] <= lvl && lvl <= ch.level[k])
+            for (int r = 0; r < R; ++r) d[r] = __fadd_rn(d[r], ch.reqn[k][r]);
+    const float* row = a.alloc + ((long long)lvl * a.N + node) * R;
+    for (int r = 0; r < R; ++r) out[r] = __fsub_rn(row[r], d[r]);
+}
+
+template <bool HET>
+static __device__ void pick_chain(const RoundArgs& a, LoopShared& sh, ChainShared& ch, QPick* redq,
+                                  ArgMin* red, long long* redl) {
+    const int tid = threadIdx.x;
+    const int R = a.R, N = a.N, W = a.W;
+    const long long NR = (long long)N * R;
+    const int E = a.batch_k - 1;
+    const bool market = *a.market != 0;
+
+    // the simulation's start: every live queue's next order key
+    for (int li = tid; li < sh.nlive; li += blockDim.x) {
+        const int q = a.live_q[li];
+        for (int r = 0; r < R; ++r) a.sim_row[q * R + r] = a.q_alloc[q * R + r];
+        const int pos = min(a.q_nskip[q], SKIP_WINDOW - 1);
+        int gn = 0;
+        const int sp = next_parked(a, q, q == sh.qstar ? min(pos + 1, SKIP_WINDOW) : pos, &gn);
+        a.simpos[q] = sp;
+        a.sim_keys[q] = sim_key(a, sh, market, q, sp, gn);
+    }
+    if (tid == 0) {
+        ch.n = 0;
+        ch.stop = 0;
+        ch.rc_valid = 0;
+        ch.r_count = sh.sched_count;
+        ch.r_iter = sh.iterations + 1;
+        for (int r = 0; r < R; ++r) {
+            ch.r_res[r] = a.sched_res[r];
+            ch.r_float[r] = a.float_used[r];
+            ch.r_spot_res[r] = a.spot_res[r];
+        }
+        ch.r_spot = *a.spot_price;
+    }
+    __syncthreads();
+
+    for (int k = 0; k < E; ++k) {
+        // (1) the simulated queue pick: the least key, ties to the lower queue
+        QPick best{ARMADA_INF, 0.0f, ARMADA_BIGI, 0};
+        for (int li = tid; li < sh.nlive; li += blockDim.x) {
+            const int q = a.live_q[li];
+            const QPick c{a.sim_keys[q], 0.0f, q, 0};
+            if (qpick_less(c, best)) best = c;
+        }
+        best = block_qpick(best, redq);
+        // (2) the pick's gang, its gates, and for an evictee its pinned fit
+        if (tid == 0) {
+            bool ok = best.q != ARMADA_BIGI && best.v < ARMADA_INF;
+            const int qj = ok ? best.q : 0;
+            const int ij = ok ? a.simpos[qj] : SKIP_WINDOW;
+            ok = ok && ij < SKIP_WINDOW && ch.r_iter < a.max_iter;
+            int g = 0;
+            if (ok) {
+                g = gq_at(a, (long long)a.q_start[qj] + a.q_head[qj] - a.q_nskip[qj] + ij);
+                ok = a.g_card[g] == 1;
+            }
+            if (ok) {
+                ch.qj = qj;
+                ch.ij = ij;
+                ch.cg = g;
+                const int run = a.g_run[g];
+                ch.ev = run >= 0;
+                ch.run_j = run;
+                ch.lvl = a.g_level[g];
+                ch.pc_j = a.g_pc[g];
+                ch.key = a.g_key[g];
+                ch.ban = a.g_ban_row[g];
+                ch.trow = HET && ch.key >= 0 ? a.key_type_row[ch.key] : 0;
+                for (int r = 0; r < R; ++r) {
+                    const float req = a.g_req[(long long)g * R + r];
+                    ch.cur_req[r] = req;
+                    ch.cur_reqn[r] = __fmul_rn(req, a.node_axes[r]);
+                    ch.cur_flt[r] = __fmul_rn(__fmul_rn(req, __fsub_rn(1.0f, a.node_axes[r])), 1.0f);
+                }
+                if (ch.ev) {
+                    const int pin = a.run_node[run];
+                    float adj[MAX_R];
+                    chain_adjusted(a, ch, pin, ch.lvl, adj);
+                    ok = fits_row(adj, ch.cur_reqn, R) && a.node_ok[pin];
+                    ch.node_j = pin;
+                } else {
+                    int prev = 0;
+                    float prev_pc[MAX_R];
+                    for (int r = 0; r < R; ++r) prev_pc[r] = 0.0f;
+                    for (int e = 0; e < ch.n; ++e) {
+                        if (ch.q[e] != qj || ch.run[e] >= 0) continue;
+                        ++prev;
+                        if (ch.pc[e] == ch.pc_j)
+                            for (int r = 0; r < R; ++r) prev_pc[r] = __fadd_rn(prev_pc[r], ch.req[e][r]);
+                    }
+                    ok = (long long)ch.r_count + 1 <= *a.global_burst &&
+                         (long long)a.q_sched[qj] + prev + 1 <= a.perq_burst[qj];
+                    const int pc = ch.pc_j;
+                    for (int r = 0; r < R; ++r) {
+                        const float req = ch.cur_req[r];
+                        ok &= __fadd_rn(ch.r_res[r], req) <= a.round_cap[r];
+                        ok &= __fadd_rn(__fadd_rn(a.q_alloc_pc[((long long)qj * a.C + pc) * R + r], prev_pc[r]),
+                                        req) <= a.pc_queue_cap[pc * R + r];
+                        ok &= __fadd_rn(ch.r_float[r], ch.cur_flt[r]) <= __fadd_rn(a.float_total[r], 1e-3f);
+                    }
+                    bool match = ch.rc_valid && ch.key >= 0 && ch.key == ch.rc_key && ch.lvl == ch.rc_lvl &&
+                                 ch.ban == ch.rc_ban;
+                    for (int r = 0; r < R; ++r) match &= ch.rc_req[r] == ch.cur_reqn[r];
+                    ch.match = match;
+                }
+            }
+            ch.stop = !ok;
+        }
+        __syncthreads();
+        if (ch.stop) break;
+        if (!ch.ev) {
+            // (3) the node pass: the row cache's rows, or fresh ones, with
+            // the earlier picks' nodes left out of the argmins
+            const int key = ch.key, lvl = ch.lvl;
+            const u8* ban = a.ban_mask + (long long)ch.ban * N;
+            const float* bias = HET ? a.type_bias + (long long)ch.trow * a.T : nullptr;
+            const bool match = ch.match;
+            const int nprev = ch.n;
+            long long n0 = 0;
+            ArgMin b0{ARMADA_INF, ARMADA_BIGI, 0}, bl{ARMADA_INF, ARMADA_BIGI, 0};
+            for (int n = tid; n < N; n += blockDim.x) {
+                float m0, ml;
+                if (match) {
+                    m0 = a.bk_m0[n];
+                    ml = a.bk_ml[n];
+                } else {
+                    const bool okn = (key < 0 || a.compat[(long long)key * a.T + a.node_type[n]]) &&
+                                     a.node_ok[n] && !ban[n];
+                    const float* r0 = a.alloc + (long long)n * R;
+                    const float* rl = a.alloc + lvl * NR + (long long)n * R;
+                    const bool f0 = okn && fits_row(r0, ch.cur_reqn, R);
+                    const bool fl = okn && fits_row(rl, ch.cur_reqn, R);
+                    float s0 = packing_score(r0, a.inv_scale, R);
+                    float sl = packing_score(rl, a.inv_scale, R);
+                    if (bias) {
+                        const float bb = bias[a.node_type[n]];
+                        s0 = __fadd_rn(s0, bb);
+                        sl = __fadd_rn(sl, bb);
+                    }
+                    m0 = f0 ? s0 : ARMADA_INF;
+                    ml = fl ? sl : ARMADA_INF;
+                    a.bk_m0[n] = m0;
+                    a.bk_ml[n] = ml;
+                    a.bk_fit0[n] = f0;
+                    a.bk_fitl[n] = fl;
+                    n0 += f0;
+                }
+                bool touched = false;
+                for (int e = 0; e < nprev; ++e) touched |= ch.node[e] == n;
+                if (touched) continue;
+                b0 = argmin_pick(b0, ArgMin{m0, n, 0});
+                bl = argmin_pick(bl, ArgMin{ml, n, 0});
+            }
+            if (!match) n0 = block_sum_ll(n0, redl);
+            b0 = block_argmin(b0, red);
+            bl = block_argmin(bl, red);
+            // (4) the clean count and the touched nodes at their adjusted
+            // allocatable; the pick is the least (score, node) of both
+            if (tid == 0) {
+                if (!match) {
+                    ch.rc_valid = 1;
+                    ch.rc_key = key;
+                    ch.rc_lvl = lvl;
+                    ch.rc_ban = ch.ban;
+                    ch.rc_n0 = n0;
+                    for (int r = 0; r < R; ++r) ch.rc_req[r] = ch.cur_reqn[r];
+                }
+                long long n0_adj = ch.rc_n0;
+                for (int e = 0; e < nprev; ++e) {
+                    const int nd = ch.node[e];
+                    bool first = true;
+                    for (int f = 0; f < e; ++f) first &= ch.node[f] != nd;
+                    if (!first || !a.bk_fit0[nd]) continue;
+                    float adj[MAX_R];
+                    chain_adjusted(a, ch, nd, 0, adj);
+                    if (!fits_row(adj, ch.cur_reqn, R)) --n0_adj;
+                }
+                const bool use_clean = n0_adj >= 1;
+                const int lvl_sel = use_clean ? 0 : lvl;
+                const u8* fsel = use_clean ? a.bk_fit0 : a.bk_fitl;
+                ArgMin bb = use_clean ? b0 : bl;
+                for (int e = 0; e < nprev; ++e) {
+                    const int nd = ch.node[e];
+                    float adj[MAX_R];
+                    chain_adjusted(a, ch, nd, lvl_sel, adj);
+                    if (!(fits_row(adj, ch.cur_reqn, R) && fsel[nd])) continue;
+                    float sc = packing_score(adj, a.inv_scale, R);
+                    if (bias) sc = __fadd_rn(sc, bias[a.node_type[nd]]);
+                    bb = argmin_pick(bb, ArgMin{sc, nd, 0});
+                }
+                if (bb.v < ARMADA_INF) {
+                    ch.node_j = bb.i;
+                } else {
+                    ch.stop = 1;
+                }
+            }
+            __syncthreads();
+            if (ch.stop) break;
+        }
+        // (5) record the pick and advance its queue's simulation
+        if (tid == 0) {
+            const int e = ch.n, qj = ch.qj, g = ch.cg;
+            ch.q[e] = qj;
+            ch.g[e] = g;
+            ch.node[e] = ch.node_j;
+            ch.lo[e] = ch.ev ? 1 : 0;
+            ch.level[e] = ch.lvl;
+            ch.pc[e] = ch.pc_j;
+            ch.run[e] = ch.ev ? ch.run_j : -1;
+            for (int r = 0; r < R; ++r) {
+                ch.req[e][r] = ch.cur_req[r];
+                ch.reqn[e][r] = ch.cur_reqn[r];
+                ch.flt[e][r] = ch.cur_flt[r];
+            }
+            ch.n = e + 1;
+            if (!ch.ev) {
+                ch.r_count += 1;
+                for (int r = 0; r < R; ++r) {
+                    ch.r_res[r] = __fadd_rn(ch.r_res[r], ch.cur_req[r]);
+                    ch.r_float[r] = __fadd_rn(ch.r_float[r], ch.cur_flt[r]);
+                }
+            }
+            for (int r = 0; r < R; ++r) ch.r_spot_res[r] = __fadd_rn(ch.r_spot_res[r], ch.cur_req[r]);
+            if (market && ch.r_spot < 0.0f) {
+                float share = -ARMADA_INF;
+                for (int r = 0; r < R; ++r) {
+                    const float t = a.total_pool[r];
+                    float f = t > 0.0f ? __fdiv_rn(ch.r_spot_res[r], fmaxf(t, 1e-9f)) : 0.0f;
+                    f = __fmul_rn(f, a.drf_mult[r]);
+                    share = fmaxf(share, f);
+                }
+                if (share > *a.spot_cutoff) ch.r_spot = a.g_spot_price[g];
+            }
+            ch.r_iter += 1;
+            for (int r = 0; r < R; ++r)
+                a.sim_row[qj * R + r] = __fadd_rn(a.sim_row[qj * R + r], ch.cur_req[r]);
+            int gn = 0;
+            const int npos = next_parked(a, qj, min(ch.ij + 1, SKIP_WINDOW), &gn);
+            a.sim_keys[qj] = sim_key(a, sh, market, qj, npos, gn);
+            a.simpos[qj] = npos;
+        }
+        __syncthreads();
+    }
+
+    // (6) the commit of the proven picks, in pick order
+    if (tid == 0) {
+        float add_res[MAX_R], add_flt[MAX_R];
+        for (int r = 0; r < R; ++r) add_res[r] = add_flt[r] = 0.0f;
+        for (int e = 0; e < ch.n; ++e) {
+            const int node = ch.node[e], q = ch.q[e], pc = ch.pc[e];
+            for (int l = ch.lo[e]; l <= ch.level[e] && l < a.P1; ++l)
+                for (int r = 0; r < R; ++r) {
+                    float* p = a.alloc + l * NR + (long long)node * R + r;
+                    *p = __fsub_rn(*p, ch.reqn[e][r]);
+                }
+            for (int r = 0; r < R; ++r) {
+                a.q_alloc[q * R + r] = __fadd_rn(a.q_alloc[q * R + r], ch.req[e][r]);
+                float* pp = a.q_alloc_pc + ((long long)q * a.C + pc) * R + r;
+                *pp = __fadd_rn(*pp, ch.req[e][r]);
+            }
+            a.g_state[ch.g[e]] = 1;
+            if (ch.run[e] >= 0) {
+                a.run_rescheduled[ch.run[e]] = 1;
+                continue;
+            }
+            for (int r = 0; r < R; ++r) {
+                add_res[r] = __fadd_rn(add_res[r], ch.req[e][r]);
+                add_flt[r] = __fadd_rn(add_flt[r], ch.flt[e][r]);
+            }
+            a.q_sched[q] += 1;
+            sh.sched_count += 1;
+            const int cur = sh.cursor;
+            if (cur < a.S) {
+                a.slot_gang[cur] = ch.g[e];
+                for (int w = 0; w < W; ++w) {
+                    a.slot_nodes[(long long)cur * W + w] = w == 0 ? node : N;
+                    a.slot_counts[(long long)cur * W + w] = w == 0 ? 1 : 0;
+                }
+            }
+            sh.cursor = cur + 1;
+        }
+        for (int r = 0; r < R; ++r) {
+            a.sched_res[r] = __fadd_rn(a.sched_res[r], add_res[r]);
+            a.float_used[r] = __fadd_rn(a.float_used[r], add_flt[r]);
+            a.spot_res[r] = ch.r_spot_res[r];
+        }
+        *a.spot_price = ch.r_spot;
+        sh.n_ext = ch.n;
+    }
+}
+
 // nodes_w / counts_w: i32[P, W] rows holding the (node, count) spread of
 // the gang being placed; node N marks an unused entry.  One instantiation
 // per loop shape, so that each carries only its own branches' registers:
 // EXT the multi-commit extension (commit_k > 1; it runs EXT_BLOCK threads,
 // so that the node sweep keeps its running minima in registers without
 // spilling), PL prefer-large ordering (never with EXT), HET the node-type
-// bias (TR > 1).
-template <bool EXT, bool PL, bool HET>
-__global__ void __launch_bounds__(EXT ? EXT_BLOCK : ARMADA_BLOCK)
+// bias (TR > 1), BK the pick chain (batch_k > 1; never with EXT, PL or the
+// cache: its replay state spilled the single-commit instantiations as a
+// runtime branch).  The fit cache is a block-uniform runtime branch of
+// every instantiation (CS > 0).
+template <bool EXT, bool PL, bool HET, bool BK>
+__global__ void __launch_bounds__(EXT ? EXT_BLOCK : BK ? BK_BLOCK : ARMADA_BLOCK)
     place_loop_kernel(RoundArgs a0, int* nodes_w, int* counts_w) {
     LANE_ARGS;
     nodes_w += (long long)blockIdx.y * a.W;
     counts_w += (long long)blockIdx.y * a.W;
     __shared__ LoopShared sh;
     __shared__ ExtShared ext;
+    __shared__ ChainShared ch;
     __shared__ QPick redq[ARMADA_WARPS + 1];
     __shared__ ArgMin red[ARMADA_WARPS + 1];
     __shared__ long long redl[ARMADA_WARPS + 1];
@@ -795,6 +1370,8 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : ARMADA_BLOCK)
         sh.cursor = 0;
         sh.sched_count = 0;
         sh.new_blocked = 0;
+        sh.nhits = 0;
+        sh.nmisses = 0;
     }
     for (int q = tid; q < a.Q; q += blockDim.x) {
         a.q_head[q] = 0;
@@ -806,10 +1383,23 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : ARMADA_BLOCK)
         a.spot_res[r] = 0.0f;
     }
     if (tid == 0) *a.spot_price = -1.0f;
+    // the fit cache's scores over the post-eviction allocatable
+    if (a.CS > 0)
+        for (long long i = tid; i < (long long)a.P1 * N; i += blockDim.x)
+            a.cscore[i] = packing_score(a.alloc + i * R, a.inv_scale, R);
     __syncthreads();
     const bool market = *a.market != 0;
 
-    while (!sh.done && sh.iterations < a.max_iter) {
+    // unroll: the loop condition is read every `unroll` steps; a step past
+    // done or the iteration bound is a no-op (the body's gate)
+    int steps_left = 0;
+    while (true) {
+        if (steps_left == 0) {
+            if (sh.done || sh.iterations >= a.max_iter) break;
+            steps_left = a.unroll;
+        }
+        --steps_left;
+        if (sh.done || sh.iterations >= a.max_iter) continue;
         // --- cursors, candidates and the queue pick -----------------------------
         QPick best{ARMADA_INF, -ARMADA_INF, ARMADA_BIGI, 0};
         bool any_has = false, adv = false, hid = false;  // hid: EXT only
@@ -828,10 +1418,9 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : ARMADA_BLOCK)
             }
             a.q_head[q] = head + nskip;
             adv |= nskip > 0;
-            if (EXT) {
-                a.q_nskip[q] = nskip;
-                hid |= nskip >= SKIP_WINDOW && head + nskip < len;
-            }
+            // the extensions read the window from its pre-skip start
+            if (EXT || BK) a.q_nskip[q] = nskip;
+            if (EXT) hid |= nskip >= SKIP_WINDOW && head + nskip < len;
             const bool visible = nskip < SKIP_WINDOW && head + nskip < len;
             const int cand = visible ? gq_at(a, (long long)start + head + nskip) : 0;
             const bool cand_new = a.g_run[cand] < 0;
@@ -922,6 +1511,9 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : ARMADA_BLOCK)
                 sh.gate_queue = gate_queue;
                 sh.attempt = !gate_global && !gate_queue;
                 sh.float_ok = ev || float_ok;
+                // cacheable: an unbanned, keyed, type-insensitive single
+                sh.cacheable = a.CS > 0 && !ev && card == 1 && sh.key >= 0 &&
+                               a.g_ban_row[g] == 0 && sh.trow == 0;
             }
             sh.fit_feasible = 0;
         }
@@ -952,6 +1544,8 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : ARMADA_BLOCK)
                     sh.fit_feasible = fits;
                 }
                 __syncthreads();
+            } else if (sh.cacheable) {
+                cached_pick(a, sh, nodes_w, counts_w, red);
             } else {
                 const int key = sh.key;
                 const u8* ban = a.ban_mask + (long long)a.g_ban_row[sh.g] * N;
@@ -1125,6 +1719,12 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : ARMADA_BLOCK)
             extension(a, sh, ext);
             __syncthreads();
         }
+        // --- K11: the fit cache's upkeep, or the pick chain -------------------------
+        if (a.CS > 0 && sh.placed) cache_upkeep(a, nodes_w, EXT ? ext.node : nullptr, EXT ? sh.n_ext : 0);
+        if (BK && sh.placed) {
+            pick_chain<HET>(a, sh, ch, redq, red, redl);
+            __syncthreads();
+        }
         if (tid == 0) {
             sh.iterations += 1 + sh.n_ext;
             sh.kiters += 1;
@@ -1140,6 +1740,8 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : ARMADA_BLOCK)
         a.scal[SC_SCHED * a.P] = sh.sched_count;
         a.scal[SC_DONE * a.P] = sh.done;
         a.scal[SC_KITERS * a.P] = sh.kiters;
+        a.scal[SC_CHITS * a.P] = sh.nhits;
+        a.scal[SC_CMISSES * a.P] = sh.nmisses;
     }
 }
 
@@ -1266,8 +1868,12 @@ static dim3 grid_for(long long n, int lanes) {
 }
 
 static bool args_ok(const RoundArgs& a) {
-    return a.R <= MAX_R && a.P >= 1 && a.P <= 65535 && a.TR >= 1 && a.commit_k >= 1 &&
-           a.commit_k <= MAX_COMMIT_K && !(a.prefer_large && a.commit_k > 1);
+    const bool base = a.R <= MAX_R && a.P >= 1 && a.P <= 65535 && a.TR >= 1 && a.commit_k >= 1 &&
+                      a.commit_k <= MAX_COMMIT_K && !(a.prefer_large && a.commit_k > 1);
+    const bool cache = a.CS >= 0 && a.CB >= 1 && a.CB <= 64 && a.N % a.CB == 0;
+    const bool chain = a.batch_k >= 1 && a.batch_k <= MAX_BATCH_K &&
+                       (a.batch_k == 1 || (a.commit_k == 1 && !a.prefer_large && a.CS == 0));
+    return base && cache && chain && a.unroll >= 1;
 }
 
 // The placement loop's instantiation for the round's loop shape.
@@ -1277,12 +1883,15 @@ static void launch_place_loop(const RoundArgs& a, dim3 grid, int* nodes_w, int* 
     const bool het = a.TR > 1;
     Loop k;
     if (a.commit_k > 1)
-        k = het ? place_loop_kernel<true, false, true> : place_loop_kernel<true, false, false>;
+        k = het ? place_loop_kernel<true, false, true, false> : place_loop_kernel<true, false, false, false>;
     else if (a.prefer_large)
-        k = het ? place_loop_kernel<false, true, true> : place_loop_kernel<false, true, false>;
+        k = het ? place_loop_kernel<false, true, true, false> : place_loop_kernel<false, true, false, false>;
+    else if (a.batch_k > 1)
+        k = het ? place_loop_kernel<false, false, true, true> : place_loop_kernel<false, false, false, true>;
     else
-        k = het ? place_loop_kernel<false, false, true> : place_loop_kernel<false, false, false>;
-    ARMADA_LAUNCH(k, grid, a.commit_k > 1 ? EXT_BLOCK : ARMADA_BLOCK, stream)(a, nodes_w, counts_w);
+        k = het ? place_loop_kernel<false, false, true, false> : place_loop_kernel<false, false, false, false>;
+    const int block = a.commit_k > 1 ? EXT_BLOCK : a.batch_k > 1 ? BK_BLOCK : ARMADA_BLOCK;
+    ARMADA_LAUNCH(k, grid, block, stream)(a, nodes_w, counts_w);
 }
 
 // Running usage into used/alloc/q_alloc/q_alloc_pc/float_used.  The caller

@@ -8,13 +8,15 @@ kernel to the plain version.
 LAUNCHES counts kernel launches per kernel, incremented only where a wrapper
 launches its kernel, so a run can show that its path went through them.
 "round_multi_commit" counts the round launches (solo or stacked) that run
-the multi-commit extension, commit_k > 1.
+the multi-commit extension, commit_k > 1; "round_fit_cache" and
+"round_batch_k" those that run the per-key fit cache (cache_slots > 0) and
+the certified pick chain (batch_k > 1).
 """
 
 LAUNCHES = {
     "fair_shares": 0, "round": 0, "compact": 0, "slab": 0, "verify": 0, "explain": 0,
     "round_stacked": 0, "stack": 0, "compact_stacked": 0, "lane_slice": 0, "verify_stacked": 0,
-    "round_multi_commit": 0,
+    "round_multi_commit": 0, "round_fit_cache": 0, "round_batch_k": 0,
 }
 
 

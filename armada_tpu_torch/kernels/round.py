@@ -1,7 +1,9 @@
 """Wrappers of kernels K-B and K-D (csrc/round.cu): the scheduling round,
-solo or stacked over P pool lanes, at every loop shape of the uncached
-body: the node-type bias, prefer-large ordering and the multi-commit
-extension (K10) up to commit_k = MAX_COMMIT_K.
+solo or stacked over P pool lanes, at every loop shape: the node-type bias,
+prefer-large ordering, the multi-commit extension (K10) up to commit_k =
+MAX_COMMIT_K, and K11 -- the per-key fit cache (any cache_slots; its tables,
+per lane, allocated here), the certified pick chain up to batch_k =
+MAX_BATCH_K, and unroll.
 
 On the card the round is a sequence of launches on the current stream with
 no host synchronisation: the prologue scatter and suffix sum, the fair
@@ -19,12 +21,16 @@ import torch
 
 from armada_tpu_torch import kernels
 from armada_tpu_torch.kernels.build import check, library, require_cuda, stream_handle
+from armada_tpu_torch.models.fair_scheduler import _INF, block_size
 
 MAX_RESOURCES = 8
 MAX_FIXPOINT_ITERS = 128
 # csrc/round.cu MAX_COMMIT_K: the widest multi-commit the kernel holds in
 # registers and shared memory
 MAX_COMMIT_K = 16
+# csrc/round.cu MAX_BATCH_K: the longest pick chain the kernel holds in
+# shared memory
+MAX_BATCH_K = 16
 
 _F32 = ("node_total", "run_req", "g_req", "g_price", "g_spot_price", "q_weight", "q_cds",
         "q_penalty", "total_pool", "drf_mult", "inv_scale", "round_cap", "pc_queue_cap",
@@ -48,15 +54,29 @@ _PTR_FIELDS = (
     "pending", "g_state", "q_killed", "q_sched", "q_head", "live_q", "key_bad",
     "slot_gang", "slot_nodes", "slot_counts", "cap_c", "cap_l", "score_c", "score_l",
     "nmin", "rmin", "cost", "scal", "type_bias", "key_type_row", "g_queue", "okey", "q_nskip",
+    "fitc_clean", "fitc_lvl", "cscore", "bmc_clean", "bmc_lvl", "cslot_key", "cslot_lvl",
+    "cslot_req", "bk_m0", "bk_ml", "bk_fit0", "bk_fitl", "sim_keys", "simpos", "sim_row",
 )
 _INT_FIELDS = ("N", "R", "G", "Q", "RJ", "K", "T", "C", "P1", "S", "W", "max_iter", "BR",
-               "P", "TR", "prefer_large", "commit_k")
+               "P", "TR", "prefer_large", "commit_k", "CS", "CB", "batch_k", "unroll")
 
 
 class RoundArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _PTR_FIELDS] + [
         (n, ctypes.c_int) for n in _INT_FIELDS
     ]
+
+
+# The last launch's [8, P] scalar block (slots 6 and 7: the fit cache's hits
+# and misses per lane), for cache_stats.
+_LAST = {}
+
+
+def cache_stats() -> list:
+    """[(hits, misses)] per lane of the last round launched, from the fit
+    cache's counters (zeros when it ran uncached).  Synchronises."""
+    scal = _LAST["scal"].cpu()
+    return [(int(scal[6, i]), int(scal[7, i])) for i in range(scal.shape[1])]
 
 
 def _check_problem(p, lanes: int) -> None:
@@ -76,36 +96,41 @@ def _check_problem(p, lanes: int) -> None:
 
 
 def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_iterations: int,
-                   prefer_large: bool = False, commit_k: int = 1):
+                   prefer_large: bool = False, commit_k: int = 1, cache_slots: int = 0,
+                   batch_k: int = 1, unroll: int = 1):
     """K-B: run the round on the problem's device: kernels for CUDA, the
     plain version for the CPU.  The statics are resolved ones
     (models/fair_scheduler.py round_statics)."""
     from armada_tpu_torch.models.fair_scheduler import schedule_round_plain
 
     kw = dict(num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
-              max_iterations=max_iterations, prefer_large=prefer_large, commit_k=commit_k)
+              max_iterations=max_iterations, prefer_large=prefer_large, commit_k=commit_k,
+              cache_slots=cache_slots, batch_k=batch_k, unroll=unroll)
     if not p.g_req.is_cuda:
         return schedule_round_plain(p, **kw)
     return _launch(p, 0, **kw)
 
 
 def schedule_round_stacked(p, *, num_levels: int, max_slots: int, slot_width: int,
-                           max_iterations: int, prefer_large: bool = False, commit_k: int = 1):
+                           max_iterations: int, prefer_large: bool = False, commit_k: int = 1,
+                           cache_slots: int = 0, batch_k: int = 1, unroll: int = 1):
     """K-D: P pools' rounds as one launch sequence, every lane with the same
-    statics.  Every field of `p` carries a leading lane axis of P; every
-    field of the RoundResult does too.  CPU problems run the plain version
-    (a loop over the lanes)."""
+    statics (and its own fit cache).  Every field of `p` carries a leading
+    lane axis of P; every field of the RoundResult does too.  CPU problems
+    run the plain version (a loop over the lanes)."""
     from armada_tpu_torch.models.fair_scheduler import schedule_round_stacked_plain
 
     kw = dict(num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
-              max_iterations=max_iterations, prefer_large=prefer_large, commit_k=commit_k)
+              max_iterations=max_iterations, prefer_large=prefer_large, commit_k=commit_k,
+              cache_slots=cache_slots, batch_k=batch_k, unroll=unroll)
     if not p.g_req.is_cuda:
         return schedule_round_stacked_plain(p, **kw)
     return _launch(p, int(p.g_req.shape[0]), **kw)
 
 
 def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
-            max_iterations: int, prefer_large: bool, commit_k: int):
+            max_iterations: int, prefer_large: bool, commit_k: int, cache_slots: int = 0,
+            batch_k: int = 1, unroll: int = 1):
     """The launch sequence; `lanes` = 0 for a solo round (no lane axis),
     else P."""
     from armada_tpu_torch.models.fair_scheduler import RoundResult
@@ -115,6 +140,15 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
                          f"the kernel's compile-time maximum (csrc/round.cu MAX_COMMIT_K)")
     if prefer_large and commit_k > 1:
         raise ValueError("round kernel: prefer_large runs at commit_k=1 (round_statics resolves it)")
+    if not 1 <= int(batch_k) <= MAX_BATCH_K:
+        raise ValueError(f"round kernel: batch_k={batch_k} is outside 1..{MAX_BATCH_K}, the "
+                         f"kernel's compile-time maximum (csrc/round.cu MAX_BATCH_K)")
+    if batch_k > 1 and (commit_k > 1 or prefer_large or cache_slots > 0):
+        raise ValueError("round kernel: batch_k > 1 runs only at commit_k=1, without prefer_large "
+                         "and without the fit cache (round_statics resolves it)")
+    if int(cache_slots) < 0 or int(unroll) < 1:
+        raise ValueError(f"round kernel: cache_slots={cache_slots} and unroll={unroll} must be "
+                         f">= 0 and >= 1")
     _check_problem(p, lanes)
     from armada_tpu_torch.kernels.fair_shares import fair_shares
 
@@ -177,6 +211,27 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         # [8, P]: slot k of every lane is the contiguous row scal[k]
         scal=torch.zeros((8, P), dtype=i32, device=dev),
     )
+    # the fit cache's tables (empty slots: key -1, block minima +INF) and
+    # the pick chain's scratch, per lane
+    CS, CB = int(cache_slots), block_size(N)
+    BN, BQ = (N, Q) if batch_k > 1 else (0, 0)
+    st.update(
+        fitc_clean=zeros((CS, N), torch.uint8),
+        fitc_lvl=zeros((CS, N), torch.uint8),
+        cscore=zeros((P1, N) if CS else (0,), f32),
+        bmc_clean=torch.full(lead + (CS, N // CB), _INF, dtype=f32, device=dev),
+        bmc_lvl=torch.full(lead + (CS, N // CB), _INF, dtype=f32, device=dev),
+        cslot_key=torch.full(lead + (CS,), -1, dtype=i32, device=dev),
+        cslot_lvl=zeros((CS,), i32),
+        cslot_req=zeros((CS, R), f32),
+        bk_m0=zeros((BN,), f32),
+        bk_ml=zeros((BN,), f32),
+        bk_fit0=zeros((BN,), torch.uint8),
+        bk_fitl=zeros((BN,), torch.uint8),
+        sim_keys=zeros((BQ,), f32),
+        simpos=zeros((BQ,), i32),
+        sim_row=zeros((BQ, R), f32),
+    )
     nodes_w = torch.full((P, W), N, dtype=i32, device=dev)
     counts_w = torch.zeros((P, W), dtype=i32, device=dev)
     lib = library()
@@ -190,7 +245,8 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         if t is not None:
             setattr(args, name, t.data_ptr())
     for name, v in zip(_INT_FIELDS, (N, R, G, Q, RJ, K, T, C, P1, S, W, int(max_iterations),
-                                     BR, P, TR, int(bool(prefer_large)), int(commit_k))):
+                                     BR, P, TR, int(bool(prefer_large)), int(commit_k), CS, CB,
+                                     int(batch_k), int(unroll))):
         setattr(args, name, v)
     stream = stream_handle()
     check(lib.armada_round_prologue(ctypes.byref(args), stream), "round prologue")
@@ -203,8 +259,13 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         "round kernels",
     )
     kernels.LAUNCHES["round_stacked" if lanes else "round"] += 1
+    _LAST["scal"] = st["scal"]
     if commit_k > 1:
         kernels.LAUNCHES["round_multi_commit"] += 1
+    if CS > 0:
+        kernels.LAUNCHES["round_fit_cache"] += 1
+    if batch_k > 1:
+        kernels.LAUNCHES["round_batch_k"] += 1
     scal = st["scal"] if lanes else st["scal"][:, 0]
     spot = st["spot_price"] if lanes else st["spot_price"][0]
     return RoundResult(

@@ -22,14 +22,13 @@ Phases (the reference's preempting queue scheduler):
 device it runs the hand-written kernels (kernels/round.py, the ports of the
 jitted `_schedule_round_jit`); on the CPU it runs `schedule_round_plain`,
 the plain PyTorch version below, which is the readable specification of what
-the kernels compute.  Every decision-bearing loop shape of the uncached body
-is ported: the node-type bias (TR > 1), prefer-large ordering, and the
-multi-commit extension (commit_k > 1, ARMADA_COMMIT_K; `_extension`), whose
-decisions equal commit_k = 1's and whose trips (kernel_iters) are fewer.
-The JAX package's decision-neutral variants -- the per-key fit cache, the
-batch_k pick chain, unroll -- are not ported: an argument or environment
-that arms them (ARMADA_CACHE_SLOTS, ARMADA_BATCH_K) raises instead of being
-ignored.
+the kernels compute.  Every loop shape of the JAX package's body is
+ported: the node-type bias (TR > 1), prefer-large ordering, the multi-commit
+extension (commit_k > 1, ARMADA_COMMIT_K; `_extension`), and the
+decision-neutral variants -- the per-key fit cache (cache_slots > 0,
+ARMADA_CACHE_SLOTS; `_FitCache`), the certified pick chain (batch_k > 1,
+ARMADA_BATCH_K; `_pick_chain`) and unroll.  None changes a decision;
+commit_k and batch_k make the trips (kernel_iters) fewer.
 
 `schedule_round_stacked` runs P pools whose problems match in every shape
 as one stacked round (a leading lane axis on every field): kernel K-D on a
@@ -98,13 +97,15 @@ def round_statics(p: SchedulingProblem, *, max_iterations: int = 0,
                   unroll: int = -1, batch_k: int = -1, commit_k: int = -1) -> dict:
     """Resolve the loop statics as the JAX package's `_resolve_round_statics`
     does, from the per-lane shapes of a stacked problem: -1 reads the
-    environment (ARMADA_CACHE_SLOTS, ARMADA_BATCH_K, ARMADA_COMMIT_K) or the
-    accelerator default; commit_k is clamped to [1, Q]; prefer_large forces
-    commit_k = batch_k = 1, and commit_k > 1 forces batch_k = 1.  Returns
-    dict(max_iterations, prefer_large, commit_k), the iteration bound being
-    2G + Q + 8 when max_iterations <= 0.  The decision-neutral variants
-    that are not ported (the per-key fit cache, the batch_k pick chain,
-    unroll) raise NotImplementedError when they resolve to an armed value."""
+    environment (ARMADA_CACHE_SLOTS, clamped to the compat rows;
+    ARMADA_BATCH_K; ARMADA_COMMIT_K) or the default, 0 / 1 / 1 / 1;
+    commit_k is clamped to [1, Q]; the fit cache or prefer_large force
+    batch_k = 1, prefer_large forces commit_k = 1, and commit_k > 1 forces
+    batch_k = 1.  The defaults differ from the JAX package's on its CPU
+    platform, which arms a 64-slot cache there: decisions are the same
+    either way.  Returns dict(max_iterations, prefer_large, commit_k,
+    cache_slots, batch_k, unroll), the iteration bound being 2G + Q + 8
+    when max_iterations <= 0."""
     o = 1 if p.q_weight.dim() == 2 else 0  # a stacked problem's lane axis
     G = int(p.g_req.shape[o])
     Q = int(p.q_weight.shape[o])
@@ -116,24 +117,22 @@ def round_statics(p: SchedulingProblem, *, max_iterations: int = 0,
     if batch_k < 0:
         env = os.environ.get("ARMADA_BATCH_K")
         batch_k = int(env) if env else 1
+    if cache_slots > 0 or prefer_large:
+        batch_k = 1
     if commit_k < 0:
         commit_k = resolve_commit_k()
     commit_k = max(1, min(commit_k, Q))
     if prefer_large:
         commit_k = 1
-    if cache_slots > 0 or prefer_large or commit_k > 1:
+    if commit_k > 1:
         batch_k = 1
-    for name, value, ported in (("cache_slots", cache_slots, 0), ("batch_k", batch_k, 1),
-                                ("unroll", unroll, 1)):
-        if value > ported:
-            raise NotImplementedError(
-                f"{name}={value} (argument or environment) arms a loop shape that is not "
-                f"ported; the port runs {name}={ported}"
-            )
     return dict(
         max_iterations=max_iterations if max_iterations > 0 else 2 * G + Q + 8,
         prefer_large=bool(prefer_large),
         commit_k=commit_k,
+        cache_slots=max(0, int(cache_slots)),
+        batch_k=max(1, int(batch_k)),
+        unroll=max(1, int(unroll)),
     )
 
 
@@ -227,14 +226,17 @@ def schedule_round_stacked(
 def schedule_round_stacked_plain(
     p: SchedulingProblem, *, num_levels: int, max_slots: int, slot_width: int,
     max_iterations: int, prefer_large: bool = False, commit_k: int = 1,
+    cache_slots: int = 0, batch_k: int = 1, unroll: int = 1,
 ) -> RoundResult:
     """The plain version of kernel K-D: the solo plain round on each lane,
-    stacked.  Exact because the lanes share nothing."""
+    stacked, every lane with the same statics and its own fit cache.
+    Exact because the lanes share nothing."""
     lanes = [
         schedule_round_plain(
             SchedulingProblem(*(t[i] for t in p)), num_levels=num_levels,
             max_slots=max_slots, slot_width=slot_width, max_iterations=max_iterations,
-            prefer_large=prefer_large, commit_k=commit_k,
+            prefer_large=prefer_large, commit_k=commit_k, cache_slots=cache_slots,
+            batch_k=batch_k, unroll=unroll,
         )
         for i in range(int(p.g_req.shape[0]))
     ]
@@ -328,12 +330,20 @@ def _fit_row(alloc_rows, req):
 def schedule_round_plain(
     p: SchedulingProblem, *, num_levels: int, max_slots: int, slot_width: int,
     max_iterations: int, prefer_large: bool = False, commit_k: int = 1,
+    cache_slots: int = 0, batch_k: int = 1, unroll: int = 1,
 ) -> RoundResult:
     """The round as plain PyTorch on the problem's device: one Python
     iteration per step of the reference's placement `while_loop`, with the
     loop body's data-dependent branches taken on host-side scalars.
     `prefer_large` orders queues by the prefer-large rule; `commit_k` > 1
-    appends the multi-commit extension (`_extension`) to every step."""
+    appends the multi-commit extension (`_extension`) to every step.
+
+    The decision-neutral shapes: `cache_slots` > 0 places cacheable singles
+    from the per-key fit cache (`_FitCache`); `batch_k` > 1 appends the
+    certified pick chain (`_pick_chain`) to every step; `unroll` > 1 reads
+    the loop condition every `unroll` steps, a step past the end being a
+    no-op.  None changes a decision; batch_k and commit_k change only
+    kernel_iters."""
     dev = p.g_req.device
     G = p.g_req.shape[0]
     N, R = p.node_total.shape
@@ -406,8 +416,19 @@ def schedule_round_plain(
     spot_price = torch.tensor(-1.0, dtype=f32, device=dev)
     empty_nodes = torch.full((slot_width,), N, dtype=i32, device=dev)
     empty_counts = torch.zeros((slot_width,), dtype=i32, device=dev)
+    cache = _FitCache(p, alloc, cache_slots) if cache_slots > 0 else None
 
-    while not done and iterations < max_iterations:
+    steps_left = 0
+    while True:
+        # unroll: the loop condition is read every `unroll` steps; a step
+        # past done or the iteration bound is a no-op (the body's gate)
+        if steps_left == 0:
+            if done or iterations >= max_iterations:
+                break
+            steps_left = unroll
+        steps_left -= 1
+        if done or iterations >= max_iterations:
+            continue
         # --- advance per-queue cursors past decided / unfeasible heads -----
         offs = q_head[:, None] + arangeW[None, :]
         in_r = offs < q_len[:, None]
@@ -489,6 +510,16 @@ def schedule_round_plain(
             nodes_w[0] = pinned if fits else N
             counts_w[0] = int(fits)
             fit_feasible = fits
+        elif cache is not None and card == 1 and key >= 0 and int(host["g_ban_row"][g]) == 0 \
+                and not (hetero and int(host["key_type_row"][key]) != 0):
+            # a cacheable single: unbanned, keyed and (TR > 1) type-insensitive,
+            # since the cached scores carry no bias
+            node, found = cache.pick(alloc, key, level, req_node, p.compat[key][node_type])
+            nodes_w = empty_nodes.clone()
+            counts_w = empty_counts.clone()
+            nodes_w[0] = node if found else N
+            counts_w[0] = int(found)
+            fit_feasible = found
         else:
             if key >= 0:
                 static_ok = p.compat[key][node_type]
@@ -607,6 +638,34 @@ def schedule_round_plain(
                     slot_counts[cursor, 0] = 1
                 cursor += 1
             sched_count += n_ext
+
+        # --- the fit cache's upkeep at every node this step's commits touched
+        if cache is not None and placed:
+            touched = nodes_w[nodes_w < N].long()
+            if n_ext:
+                touched = torch.cat([touched, node_e[:n_ext].long()])
+            cache.update(alloc, touched)
+
+        # --- the certified pick chain: up to batch_k - 1 more placements ----
+        if batch_k > 1 and placed:
+            chain = _pick_chain(
+                p, batch_k - 1, qstar=qstar, pos=pos, wg=wg, in_r=in_r, skippable=skippable,
+                alloc=alloc, q_alloc=q_alloc, q_alloc_pc=q_alloc_pc, q_sched=q_sched,
+                q_killed=q_killed, new_blocked=new_blocked, sched_count=sched_count,
+                sched_res=sched_res, float_used=float_used, float_cap=float_cap,
+                spot_res=spot_res, spot_price=spot_price, pool_safe=pool_safe,
+                iterations=iterations + 1, max_iterations=max_iterations,
+                g_req_node=g_req_node, g_float_tot=g_float_tot, g_req_tot=g_req_tot,
+                type_bias_nodes=type_bias_nodes, host=host,
+            )
+            (alloc, q_alloc, q_alloc_pc, sched_count, sched_res, float_used, spot_res,
+             spot_price, cursor, n_ext) = _commit_chain(
+                p, chain, num_levels=num_levels, alloc=alloc, q_alloc=q_alloc,
+                q_alloc_pc=q_alloc_pc, q_sched=q_sched, sched_count=sched_count,
+                sched_res=sched_res, float_used=float_used, g_state=g_state,
+                run_rescheduled=run_rescheduled, slot_gang=slot_gang, slot_nodes=slot_nodes,
+                slot_counts=slot_counts, cursor=cursor, max_slots=max_slots,
+            )
         iterations += 1 + n_ext
         kernel_iters += 1
 
@@ -647,6 +706,19 @@ def _ordered_masked_sum(mask: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     for k in range(int(rows.shape[0])):
         acc = acc + mask[..., k, None] * rows[k]
     return acc
+
+
+def _window_tables(in_r, skippable):
+    """(nn, tail_known) of the step's [Q, W] cursor window, shared by both
+    extensions (fair_scheduler.py:760-772): nn[q, i] is the first parked
+    (undecided) window index at or after i, W if none; tail_known[q] says
+    the window reaches past the queue's tail, so nothing hides beyond it."""
+    W = in_r.shape[1]
+    parked = in_r & ~skippable
+    nn = torch.full((in_r.shape[0], W + 1), W, dtype=torch.int64, device=in_r.device)
+    for i in range(W - 1, -1, -1):
+        nn[:, i] = torch.where(parked[:, i], i, nn[:, i + 1])
+    return nn, ~in_r[:, W - 1]
 
 
 def _extension(p: SchedulingProblem, E: int, *, qstar, order_key, cand, pos, wg, in_r,
@@ -713,11 +785,7 @@ def _extension(p: SchedulingProblem, E: int, *, qstar, order_key, cand, pos, wg,
     # (the first undecided window entry past its head) must not precede a
     # later pick; a window that ends before the queue's tail proves nothing
     qk = torch.cat([torch.tensor([qstar], device=dev), qe])
-    parked = in_r & ~skippable
-    nn = torch.full((parked.shape[0], W + 1), W, dtype=torch.int64, device=dev)
-    for i in range(W - 1, -1, -1):
-        nn[:, i] = torch.where(parked[:, i], i, nn[:, i + 1])
-    tail_known = ~in_r[:, W - 1]
+    nn, tail_known = _window_tables(in_r, skippable)
     npos = nn[qk, torch.clamp(pos[qk] + 1, max=W)]
     g_next = wg[qk, torch.clamp(npos, max=W - 1)]
     own_req = torch.cat([torch.zeros((1, req_e.shape[1]), dtype=f32, device=dev), req_e])
@@ -783,6 +851,327 @@ def _extension(p: SchedulingProblem, E: int, *, qstar, order_key, cand, pos, wg,
     raw_ok = elig & ok_caps & ok_order & ok_nodes & found_e
     n = int(torch.cumprod(raw_ok.to(torch.int64), dim=0).sum())
     return qe, ge, node_e, n
+
+
+def block_size(n: int) -> int:
+    """Largest power-of-two block size <= 64 dividing n: the fit cache's
+    block-minima rows tile the node axis exactly."""
+    for b in (64, 32, 16, 8, 4, 2):
+        if n % b == 0:
+            return b
+    return 1
+
+
+class _FitCache:
+    """The per-key fit cache of the JAX package's cached body (cache_slots
+    > 0; fair_scheduler.py:515-600, the setup at :1930-1945 and the upkeep
+    at :1017-1079).  Slot s = key % S holds one (key, level, request)'s fit
+    rows at the clean level and at its own level, and their block minima:
+    the least masked packing score in each block of B nodes.  One
+    packing-score row per level serves every slot.
+
+    A hit (key, level and request all equal; a colliding key misses) picks
+    the first block attaining the least block minimum, then the first node
+    attaining it inside that block -- the first argmin over every node, as
+    the uncached pass takes it, from NB + B elements instead of N.  A miss
+    computes the rows in one pass over the nodes and takes the slot.  After
+    each commit the scores at the touched nodes, every slot's fit bits
+    there and the touched blocks' minima are re-derived from the new
+    allocatable, so every row stays what a fresh pass would give: the cache
+    memoises exactly and changes no decision.  The scores are the packing
+    score's fma chain, as XLA:CPU computes the JAX package's tables (the
+    same left-to-right chain as the uncached score; ROADMAP Queue 3)."""
+
+    def __init__(self, p: SchedulingProblem, alloc: torch.Tensor, slots: int):
+        dev = alloc.device
+        P1, N, R = alloc.shape
+        self.p, self.S, self.N = p, slots, N
+        self.B = block_size(N)
+        self.NB = N // self.B
+        self.node_type = p.node_type.long()
+        self.fit_clean = torch.zeros((slots, N), dtype=torch.bool, device=dev)
+        self.fit_lvl = torch.zeros((slots, N), dtype=torch.bool, device=dev)
+        # over the post-eviction allocatable: the loop's starting state
+        self.score = node_packing_score(alloc, p.inv_scale)  # [P1, N]
+        self.bm_clean = torch.full((slots, self.NB), _INF, dtype=torch.float32, device=dev)
+        self.bm_lvl = torch.full((slots, self.NB), _INF, dtype=torch.float32, device=dev)
+        self.key = torch.full((slots,), -1, dtype=torch.int64, device=dev)
+        self.lvl = torch.zeros((slots,), dtype=torch.int64, device=dev)
+        self.req = torch.zeros((slots, R), dtype=torch.float32, device=dev)
+
+    def _pick_at(self, bm, fit, score):
+        b = int(torch.argmin(bm))
+        lo = b * self.B
+        masked = torch.where(fit[lo:lo + self.B], score[lo:lo + self.B],
+                             torch.full((self.B,), _INF, dtype=score.dtype, device=score.device))
+        return lo + int(torch.argmin(masked)), float(bm[b]) < _INF
+
+    def pick(self, alloc, key: int, level: int, req_node, static_ok):
+        """(node, found) of a cacheable single, clean level first."""
+        s = key % self.S
+        hit = (int(self.key[s]) == key and int(self.lvl[s]) == level
+               and bool((self.req[s] == req_node).all()))
+        if hit:
+            if float(self.bm_clean[s].min()) < _INF:
+                return self._pick_at(self.bm_clean[s], self.fit_clean[s], self.score[0])
+            return self._pick_at(self.bm_lvl[s], self.fit_lvl[s], self.score[level])
+        ok = static_ok & self.p.node_ok
+        fc = ok & _fit_row(alloc[0], req_node)
+        fl = ok & _fit_row(alloc[level], req_node)
+        inf = torch.full_like(self.score[0], _INF)
+        m0 = torch.where(fc, self.score[0], inf)
+        ml = torch.where(fl, self.score[level], inf)
+        self.fit_clean[s], self.fit_lvl[s] = fc, fl
+        self.bm_clean[s] = m0.reshape(self.NB, self.B).amin(dim=1)
+        self.bm_lvl[s] = ml.reshape(self.NB, self.B).amin(dim=1)
+        self.key[s], self.lvl[s], self.req[s] = key, level, req_node
+        n0 = int(torch.argmin(m0))
+        if float(m0[n0]) < _INF:
+            return n0, True
+        nl = int(torch.argmin(ml))
+        return nl, float(ml[nl]) < _INF
+
+    def update(self, alloc, touched):
+        """Re-derive the tables at the nodes `touched` by this step's commits."""
+        p, B = self.p, self.B
+        tn = torch.unique(touched)
+        self.score[:, tn] = node_packing_score(alloc[:, tn, :], p.inv_scale)
+        ok = ((self.key >= 0)[:, None] & p.compat[self.key.clamp(min=0)][:, self.node_type[tn]]
+              & p.node_ok[tn][None, :])
+        req = self.req[:, None, :]
+        self.fit_clean[:, tn] = ok & _fit_row(alloc[0, tn][None, :, :], req)
+        self.fit_lvl[:, tn] = ok & _fit_row(alloc[self.lvl[:, None], tn[None, :]], req)
+        blocks = torch.unique(tn // B)
+        nblk = blocks[:, None] * B + torch.arange(B, device=tn.device)[None, :]  # [TB, B]
+        inf = torch.tensor(_INF, dtype=torch.float32, device=tn.device)
+        self.bm_clean[:, blocks] = torch.where(
+            self.fit_clean[:, nblk], self.score[0][nblk][None], inf).amin(dim=-1)
+        self.bm_lvl[:, blocks] = torch.where(
+            self.fit_lvl[:, nblk], self.score[self.lvl[:, None, None], nblk[None]], inf
+        ).amin(dim=-1)
+
+
+class _ChainPick(NamedTuple):
+    q: int
+    g: int
+    node: int
+    lo: int  # the lowest level the pick's commit reaches (1 for an evictee)
+    level: int
+    pc: int
+    run: int  # -1 unless an evictee
+    req: torch.Tensor
+    reqn: torch.Tensor
+    flt: torch.Tensor
+
+
+def _chain_delta(picks, node: int, lvl: int, like: torch.Tensor) -> torch.Tensor:
+    """The earlier picks' requests committed at (lvl, node), summed in pick
+    order from 0 (integral resolution units: exact in any order)."""
+    acc = torch.zeros_like(like)
+    for pk in picks:
+        if pk.node == node and pk.lo <= lvl <= pk.level:
+            acc = acc + pk.reqn
+    return acc
+
+
+def _pick_chain(p: SchedulingProblem, E: int, *, qstar, pos, wg, in_r, skippable, alloc,
+                q_alloc, q_alloc_pc, q_sched, q_killed, new_blocked, sched_count, sched_res,
+                float_used, float_cap, spot_res, spot_price, pool_safe, iterations,
+                max_iterations, g_req_node, g_float_tot, g_req_tot, type_bias_nodes, host):
+    """The certified pick chain of one placement step (the JAX package's
+    `_make_place_iteration` at batch_k = E + 1, fair_scheduler.py:1081-1480),
+    run after the head placed.  It replays the sequential loop's next E
+    steps on [Q] state -- each queue's simulated order key and window
+    position -- against the post-head state, every f32 expression in the
+    sequential association, and stops at the first step it cannot prove: a
+    gang head, a queue whose window ends before its tail, a gate or cap that
+    would trip, a floating-capacity shortfall, a no-fit, or the iteration
+    bound.  The allocatable stays the post-head one during the replay: the
+    earlier picks' requests are subtracted at their nodes where a later pick
+    reads them.  Returns (picks, spot_res, spot_price): the picks that
+    commit, in order, and the spot state after them.  `iterations` is the
+    step count after the head."""
+    dev = alloc.device
+    N = p.node_total.shape[0]
+    Q = p.q_weight.shape[0]
+    W = SKIP_WINDOW
+    f32 = torch.float32
+    market = bool(p.market)
+    iota_q = torch.arange(Q, device=dev)
+    inf = torch.tensor(_INF, dtype=f32, device=dev)
+    node_type = p.node_type.long()
+
+    # the cursor's next stops, and the gate on the key, not the cursor
+    nn, tail_known = _window_tables(in_r, skippable)
+    wev = p.g_run[wg] >= 0
+    wallowed = ~(~wev & (q_killed[:, None] | bool(new_blocked))) & (p.q_weight > 0)[:, None]
+
+    # the simulation: every queue's next order key
+    sim_row = q_alloc.clone()
+    simpos = torch.where(iota_q == qstar, nn[iota_q, torch.clamp(pos + 1, max=W)], nn[iota_q, pos])
+    sp_safe = torch.clamp(simpos, max=W - 1)
+    g_at = wg[iota_q, sp_safe]
+    if market:
+        sim_keys = -p.g_price[g_at]
+    else:
+        sim_keys = weighted_drf_cost((sim_row + p.q_penalty) + g_req_tot[g_at], p.total_pool,
+                                     p.drf_mult, p.q_weight)
+    sim_keys = torch.where(wallowed[iota_q, sp_safe], sim_keys, inf)
+    sim_keys = torch.where(simpos < W, sim_keys, torch.where(tail_known, inf, -inf))
+
+    picks = []
+    r_count, r_res, r_float = sched_count, sched_res, float_used
+    r_spot_res, r_spot, r_iter = spot_res, spot_price, iterations
+    score_all = None
+    row_cache = None  # the one-entry within-step fit-row cache
+    for _ in range(E):
+        qj = int(torch.argmin(sim_keys))
+        i_j = int(simpos[qj])
+        if not (float(sim_keys[qj]) < _INF and i_j < W and r_iter < max_iterations):
+            break
+        g = int(wg[qj, i_j])
+        if int(host["g_card"][g]) != 1:
+            break  # gang heads run as heads
+        run = int(host["g_run"][g])
+        ev = run >= 0
+        lvl, pc, key, ban = (int(host[f][g]) for f in ("g_level", "g_pc", "g_key", "g_ban_row"))
+        req, reqn, flt = p.g_req[g], g_req_node[g], g_float_tot[g]
+        if ev:
+            # a pinned evictee: its run node at its own level, exactly
+            node = int(host["run_node"][run])
+            adj = alloc[lvl, node] - _chain_delta(picks, node, lvl, reqn)
+            if not (bool(_fit_row(adj, reqn)) and bool(p.node_ok[node])):
+                break
+        else:
+            # the gates over the committed prefix, same-queue repeats included
+            prev = [pk for pk in picks if pk.q == qj and pk.run < 0]
+            prev_pc = torch.zeros_like(req)
+            for pk in prev:
+                if pk.pc == pc:
+                    prev_pc = prev_pc + pk.req
+            if not (r_count + 1 <= int(p.global_burst)
+                    and bool(((r_res + req) <= p.round_cap).all())
+                    and int(q_sched[qj]) + len(prev) + 1 <= int(host["perq_burst"][qj])
+                    and bool((((q_alloc_pc[qj, pc] + prev_pc) + req) <= p.pc_queue_cap[pc]).all())
+                    and bool(((r_float + flt) <= float_cap).all())):
+                break
+            # the fit rows against the post-head allocatable: reused from
+            # the previous pick when it had the same key, level, bans and
+            # request (the allocatable does not change during the replay)
+            if row_cache is not None and key >= 0 and row_cache[0] == (key, lvl, ban) \
+                    and bool((row_cache[1] == reqn).all()):
+                fit0, fitl, m0, ml, n0 = row_cache[2]
+            else:
+                if score_all is None:
+                    score_all = node_packing_score(alloc, p.inv_scale)
+                static = p.compat[key][node_type] if key >= 0 else \
+                    torch.ones((N,), dtype=torch.bool, device=dev)
+                okn = static & p.node_ok & ~p.ban_mask[ban]
+                fit0 = okn & _fit_row(alloc[0], reqn)
+                fitl = okn & _fit_row(alloc[lvl], reqn)
+                s0, sl = score_all[0], score_all[lvl]
+                if type_bias_nodes is not None:
+                    tb = type_bias_nodes[int(host["key_type_row"][key]) if key >= 0 else 0]
+                    s0, sl = s0 + tb, sl + tb
+                m0 = torch.where(fit0, s0, inf)
+                ml = torch.where(fitl, sl, inf)
+                n0 = int(fit0.sum())
+            row_cache = ((key, lvl, ban), reqn, (fit0, fitl, m0, ml, n0))
+            # the clean count after the earlier picks (fits only flip
+            # True -> False; each touched node counted once)
+            touched = list(dict.fromkeys(pk.node for pk in picks))
+            flips = sum(
+                1 for nd in touched
+                if bool(fit0[nd]) and not bool(_fit_row(alloc[0, nd] - _chain_delta(picks, nd, 0, reqn),
+                                                        reqn))
+            )
+            use_clean = n0 - flips >= 1
+            lvl_sel = 0 if use_clean else lvl
+            msel = (m0 if use_clean else ml).clone()
+            fsel = fit0 if use_clean else fitl
+            if touched:
+                msel[torch.tensor(touched, device=dev)] = _INF
+            u_node = int(torch.argmin(msel))
+            u_score = float(msel[u_node])
+            # the touched nodes at their adjusted allocatable
+            best = (u_score, u_node)
+            for pk in picks:
+                nd = pk.node
+                adj = alloc[lvl_sel, nd] - _chain_delta(picks, nd, lvl_sel, reqn)
+                if not (bool(_fit_row(adj, reqn)) and bool(fsel[nd])):
+                    continue
+                sc = node_packing_score(adj, p.inv_scale)
+                if type_bias_nodes is not None:
+                    sc = sc + tb[nd]
+                best = min(best, (float(sc), nd))
+            if not best[0] < _INF:
+                break  # a no-fit fails sequentially: the head path takes it
+            node = best[1]
+        picks.append(_ChainPick(qj, g, node, 1 if ev else 0, lvl, pc, run if ev else -1,
+                                req, reqn, flt))
+        if not ev:
+            r_count += 1
+            r_res = r_res + req
+            r_float = r_float + flt
+        r_spot_res = r_spot_res + req
+        if market and float(r_spot) < 0:
+            share = (torch.where(p.total_pool > 0, r_spot_res / pool_safe,
+                                 torch.zeros_like(r_spot_res)) * p.drf_mult).amax()
+            if float(share) > float(p.spot_cutoff):
+                r_spot = p.g_spot_price[g].clone()
+        r_iter += 1
+        # the picked queue's next key
+        npos = int(nn[qj, min(i_j + 1, W)])
+        gn = int(wg[qj, min(npos, W - 1)])
+        sim_row[qj] = sim_row[qj] + req
+        if npos >= W:
+            keyn = _INF if bool(tail_known[qj]) else -_INF
+        elif not bool(wallowed[qj, min(npos, W - 1)]):
+            keyn = _INF
+        elif market:
+            keyn = -float(p.g_price[gn])
+        else:
+            keyn = float(weighted_drf_cost(((sim_row[qj] + p.q_penalty[qj]) + g_req_tot[gn])[None],
+                                           p.total_pool, p.drf_mult, p.q_weight[qj][None])[0])
+        sim_keys[qj] = keyn
+        simpos[qj] = npos
+    return picks, r_spot_res, r_spot
+
+
+def _commit_chain(p: SchedulingProblem, chain, *, num_levels, alloc, q_alloc, q_alloc_pc,
+                  q_sched, sched_count, sched_res, float_used, g_state, run_rescheduled,
+                  slot_gang, slot_nodes, slot_counts, cursor, max_slots):
+    """Commit the certified chain's picks (the JAX package's vectorized
+    commit, fair_scheduler.py:1424-1480): the allocatable, the queues'
+    allocations and counts, states, rescheduled evictees and the slot
+    records of new placements, in pick order; the round's scheduled
+    resources gain the picks' sum.  Returns the updated scalars and tensors
+    and the number of picks."""
+    picks, spot_res, spot_price = chain
+    add_res = torch.zeros_like(sched_res)
+    add_flt = torch.zeros_like(float_used)
+    N = p.node_total.shape[0]
+    for pk in picks:
+        alloc[pk.lo: min(pk.level, num_levels - 1) + 1, pk.node, :] -= pk.reqn[None, :]
+        q_alloc[pk.q] += pk.req
+        q_alloc_pc[pk.q, pk.pc] += pk.req
+        g_state[pk.g] = 1
+        if pk.run >= 0:
+            run_rescheduled[pk.run] = True
+            continue
+        add_res = add_res + pk.req
+        add_flt = add_flt + pk.flt
+        q_sched[pk.q] += 1
+        sched_count += 1
+        if cursor < max_slots:
+            slot_gang[cursor] = pk.g
+            slot_nodes[cursor] = N
+            slot_nodes[cursor, 0] = pk.node
+            slot_counts[cursor] = 0
+            slot_counts[cursor, 0] = 1
+        cursor += 1
+    return (alloc, q_alloc, q_alloc_pc, sched_count, sched_res + add_res, float_used + add_flt,
+            spot_res, spot_price, cursor, len(picks))
 
 
 def retire_bad_keys(g_state, p: SchedulingProblem, key_bad):

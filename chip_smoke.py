@@ -24,9 +24,15 @@ path: the main problem again through run_round_on_device with
 ARMADA_COMMIT_K=8 (the multi-commit extension, K10), which must decide as
 the K=1 round did, and with prefer-large ordering; a 1M-gang problem with
 node-type bias; run_scheduling_round with node-type scores and both arms of
-the pools serving loop at K=1 and 8 on small worlds.  Those branches are
-held against their plain versions on small problems, solo and stacked,
-before the main path.
+the pools serving loop at K=1 and 8 on small worlds; and K11, the main
+problem with the per-key fit cache (ARMADA_CACHE_SLOTS=64) and the pick
+chain (ARMADA_BATCH_K=8), each deciding as the uncached round, timed beside
+it.  Those branches are held against their plain versions on small
+problems, solo and stacked, before the main path.  Last, the simulator
+path: Simulator.run on the card, a small world with gangs and preemption
+through the kernels and through the plain versions, and a two-pool world
+of 10,000 nodes and 100,000 jobs uncached and cached, whose traces must be
+equal.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
@@ -78,6 +84,10 @@ SOURCES = {
     "verify_stacked": ("armada_tpu_torch/csrc/verify.cu", "armada_tpu/models/verify.py:496"),
     "round_multi_commit": ("armada_tpu_torch/csrc/round.cu",
                            "armada_tpu/models/fair_scheduler.py:773"),
+    "round_fit_cache": ("armada_tpu_torch/csrc/round.cu",
+                        "armada_tpu/models/fair_scheduler.py:515"),
+    "round_batch_k": ("armada_tpu_torch/csrc/round.cu",
+                      "armada_tpu/models/fair_scheduler.py:1081"),
 }
 # The incremental path: the steady-state cycle over the main path's world
 # (bench.py's _e2e_bench shape): one warm cycle (full upload), then steady
@@ -462,6 +472,9 @@ LOOP_BURST = dict(num_nodes=2_000, num_gangs=20_000, num_queues=64, num_runs=0,
                   global_burst=1_000, perq_burst=1_000, max_gang_cardinality=1, seed=3)
 LOOP_HETERO = dict(num_nodes=2_000, num_gangs=20_000, num_queues=32, num_runs=500,
                    num_node_types=8, type_sensitive_frac=0.3, max_gang_cardinality=4, seed=1)
+# four queues: long same-queue chains that reach the end of the cursor window
+LOOP_FEWQ = dict(num_nodes=500, num_gangs=6_000, num_queues=4, num_runs=0, global_burst=1_000,
+                 perq_burst=1_000, max_gang_cardinality=1, seed=5)
 LOOP_LANES = dict(num_nodes=1_000, num_gangs=6_000, num_queues=40, num_runs=400,
                   max_gang_cardinality=2, type_sensitive_frac=0.3, seed=4)
 # the entry points' small worlds: node types and type scores on a synthetic
@@ -492,11 +505,12 @@ def _lanes_of(dp, P: int) -> list:
 
 
 def check_loop_kernels(dev) -> dict:
-    """The round's new branches against their plain versions on the card,
+    """The round's loop shapes against their plain versions on the card,
     on small problems, every RoundResult field: K10 at K = 8 and 16 on a
     burst of singles, the node-type bias (TR > 1) at K = 1 and 8,
     prefer-large on gangs and on evictees; then K-D with each on windows of
-    3 lanes, each lane equal to the solo K-B round."""
+    3 lanes, each lane equal to the solo K-B round; then K11
+    (check_k11_kernels)."""
     from armada_tpu_torch.models.state import problem_from_numpy
     from armada_tpu_torch.models.synthetic import synthetic_problem
 
@@ -524,6 +538,68 @@ def check_loop_kernels(dev) -> dict:
     lp, lmeta = synthetic_problem(**LOOP_LANES)
     lanes = _lanes_of(problem_from_numpy(lp, dev), 3)
     for statics in (dict(commit_k=LOOP_COMMIT_K), dict(prefer_large=True)):
+        key = "stacked " + " ".join(f"{a}={b}" for a, b in statics.items())
+        out[key] = _stacked_check("loop lanes (TR > 1)", lanes, lmeta, dev, **statics)
+    out.update(check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta))
+    return out
+
+
+def check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta) -> dict:
+    """K11, the decision-neutral loop bodies, against the plain version on
+    small problems, every RoundResult field: the fit cache at 4 slots (key
+    collisions, misses, overwrites) and 64 on the burst problem, an eviction
+    world, TR > 1, at commit_k 8 and with prefer-large; the pick chain at
+    batch_k 8 with and without TR > 1 and on the eviction world; unroll 4;
+    and 3-lane stacks with the cache and with the chain.  Each must also
+    equal the uncached round but for kernel_iters."""
+    from armada_tpu_torch.kernels.round import cache_stats
+    from armada_tpu_torch.models.state import problem_from_numpy
+    from armada_tpu_torch.models.synthetic import synthetic_problem
+
+    out = {}
+
+    def case(name, dp, meta, base=None, **statics):
+        info = check_round(name, dp, meta, dev, **statics)
+        if statics.get("cache_slots"):
+            info["cache_hits"], info["cache_misses"] = cache_stats()[0]
+            if info["cache_hits"] + info["cache_misses"] == 0:
+                raise AssertionError(f"{name} {statics}: the fit cache was never consulted")
+        if base is not None:
+            for k in ("iterations", "scheduled", "evicted", "rescheduled", "termination"):
+                if info[k] != base[k]:
+                    raise AssertionError(f"{name} {statics}: {k} {info[k]} != uncached {base[k]}")
+        out[f"{name} " + " ".join(f"{a}={b}" for a, b in statics.items())] = info
+        return info
+
+    burst = out["burst base"] = check_round("burst", bdp, bmeta, dev)
+    for slots in (4, 64):
+        if case("burst", bdp, bmeta, burst, cache_slots=slots)["cache_hits"] == 0:
+            raise AssertionError(f"the burst's fit cache never hit at {slots} slots")
+    case("burst", bdp, bmeta, burst, cache_slots=64, commit_k=LOOP_COMMIT_K)
+    ib = case("burst", bdp, bmeta, burst, batch_k=8)
+    if 2 * ib["kernel_iters"] > burst["kernel_iters"]:
+        raise AssertionError(f"batch_k 8 did not halve the burst's trips: {ib}")
+    case("burst", bdp, bmeta, burst, unroll=4)
+    fp, fmeta = synthetic_problem(**LOOP_FEWQ)
+    fdp = problem_from_numpy(fp, dev)
+    fewq = check_round("four queues", fdp, fmeta, dev)
+    for k in (8, 16):
+        case("four queues", fdp, fmeta, fewq, batch_k=k)
+    ep, ectx = world_problem(KB_EVICT, protected=0.0)
+    emeta = round_meta(ectx)
+    edp = problem_from_numpy(ep, dev)
+    evict = check_round("eviction world", edp, emeta, dev)
+    case("eviction world", edp, emeta, evict, cache_slots=4)
+    case("eviction world", edp, emeta, evict, batch_k=8)
+    het = check_round("hetero", hdp, hmeta, dev)
+    case("hetero", hdp, hmeta, het, cache_slots=4)
+    case("hetero", hdp, hmeta, het, cache_slots=64, commit_k=LOOP_COMMIT_K)
+    case("hetero", hdp, hmeta, het, batch_k=8)
+    sp, smeta = synthetic_problem(**KB_SYNTH)
+    sdp = problem_from_numpy(sp, dev)
+    pl = check_round("synthetic_problem", sdp, smeta, dev, prefer_large=True)
+    case("synthetic_problem", sdp, smeta, pl, cache_slots=4, prefer_large=True)
+    for statics in (dict(cache_slots=4), dict(batch_k=8)):
         key = "stacked " + " ".join(f"{a}={b}" for a, b in statics.items())
         out[key] = _stacked_check("loop lanes (TR > 1)", lanes, lmeta, dev, **statics)
     return out
@@ -554,12 +630,18 @@ def _outcome_view(o) -> tuple:
             list(o.failed), o.num_iterations, o.termination, o.spot_price)
 
 
-def _with_commit_k(k: int, fn):
-    os.environ["ARMADA_COMMIT_K"] = str(k)
+def _with_env(env: dict, fn):
+    """fn() with the environment variables of `env` set, restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
     try:
         return fn()
     finally:
-        os.environ.pop("ARMADA_COMMIT_K", None)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _small_pool_arm(dev, world: dict, fresh: list, parallel: bool, commit_k: int) -> dict:
@@ -621,7 +703,7 @@ def loop_shapes_path(dev, main: dict) -> dict:
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res8, out8 = _with_commit_k(LOOP_COMMIT_K, lambda: run_round_on_device(
+    res8, out8 = _with_env(dict(ARMADA_COMMIT_K=LOOP_COMMIT_K), lambda: run_round_on_device(
         problem, ctx, config, device=dev, device_problem=dp))
     torch.cuda.synchronize()
     entry_s = time.perf_counter() - t0
@@ -630,7 +712,7 @@ def loop_shapes_path(dev, main: dict) -> dict:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the loop-shapes path")
     with uncounted():
-        res1, out1 = _with_commit_k(1, lambda: run_round_on_device(
+        res1, out1 = _with_env(dict(ARMADA_COMMIT_K=1), lambda: run_round_on_device(
             problem, ctx, config, device=dev, device_problem=dp))
     if _outcome_view(out8) != _outcome_view(out1) or \
             _outcome_view(out1) != _outcome_view(k1_outcome):
@@ -727,7 +809,7 @@ def loop_shapes_path(dev, main: dict) -> dict:
     # the entry points on small worlds
     tw = _typed_world(ENTRY_WORLD)
     tc, tn, tq, ts, tr, _ = tw
-    outs = {k: _with_commit_k(k, lambda: run_scheduling_round(
+    outs = {k: _with_env(dict(ARMADA_COMMIT_K=k), lambda: run_scheduling_round(
         tc, pool="default", nodes=tn, queues=tq, queued_jobs=ts, running=tr, device=dev))
         for k in (1, LOOP_COMMIT_K)}
     if _outcome_view(outs[1]) != _outcome_view(outs[LOOP_COMMIT_K]):
@@ -769,7 +851,112 @@ def loop_shapes_path(dev, main: dict) -> dict:
     row = dict(name="round_multi_commit", route="cuda", source=src, replaces=rep,
                launches=launches["round_multi_commit"], max_abs_err=0.0, equal=True, ms=k8_ms,
                plain_ms=plain8_ms, bound_ms=bms, bound_by=by, library_ms=None)
-    return dict(rows=[row], report=report)
+    k11 = k11_main_world(dev, main, k1_outcome)
+    report["k11_main"] = k11["report"]
+    return dict(rows=[row] + k11["rows"], report=report)
+
+
+# The fit cache's slots and the pick chain's length armed on the main world
+K11_SLOTS = 64
+K11_BATCH_K = 8
+
+
+
+def k11_main_world(dev, main: dict, k1_outcome) -> dict:
+    """K11 at full width: the main path's own problem (no second build)
+    through run_round_on_device with ARMADA_CACHE_SLOTS = 64 and with
+    ARMADA_BATCH_K = 8, each deciding as the uncached round did; K-B timed
+    uncached and cached in turns (0, 64, 64, 0) and at batch_k 8 once, CUDA
+    events, each against its plain version on the card."""
+    import torch
+
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch.kernels.round import cache_stats, schedule_round
+    from armada_tpu_torch.models import run_round_on_device
+    from armada_tpu_torch.models.fair_scheduler import (
+        block_size, round_statics, schedule_round_plain,
+    )
+
+    config, problem, ctx, dp = main["config"], main["problem"], main["ctx"], main["dp"]
+    meta = round_meta(ctx)
+    N, R = (int(x) for x in dp.node_total.shape)
+    live_q = int((dp.q_len > 0).sum())
+    per_iter = 2 * N * R * 4 + live_q * 16 * 13
+    report, rows, launches = {}, [], {}
+    for name, env in (("round_fit_cache", dict(ARMADA_CACHE_SLOTS=K11_SLOTS)),
+                      ("round_batch_k", dict(ARMADA_CACHE_SLOTS=0, ARMADA_BATCH_K=K11_BATCH_K))):
+        kernels.reset_launches()
+        res, out = _with_env(env, lambda: run_round_on_device(
+            problem, ctx, config, device=dev, device_problem=dp))
+        torch.cuda.synchronize()
+        launches[name] = dict(kernels.LAUNCHES)
+        if launches[name][name] <= 0 or launches[name]["round"] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the main world: "
+                                 f"{launches[name]}")
+        if _outcome_view(out) != _outcome_view(k1_outcome):
+            raise AssertionError(f"{name}: the main world decides differently from the "
+                                 "uncached round")
+        report[name] = dict(iterations=int(res.iterations), kernel_iters=int(res.kernel_iters))
+    with uncounted():
+        kw0 = dict(meta, **round_statics(dp, cache_slots=0, batch_k=1, commit_k=1))
+        kws = _with_env(dict(ARMADA_CACHE_SLOTS=K11_SLOTS), lambda: dict(
+            meta, **round_statics(dp, cache_slots=-1, batch_k=1, commit_k=1)))
+        kwb = dict(meta, **round_statics(dp, cache_slots=0, batch_k=K11_BATCH_K, commit_k=1))
+        S = kws["cache_slots"]
+        ms = {0: [], S: []}
+        for key, kw in ((0, kw0), (S, kws), (S, kws), (0, kw0)):
+            t, r = cuda_ms(lambda kw=kw: schedule_round(dp, **kw), reps=2)
+            ms[key].append(t)
+            if key == S:
+                rs = r
+                hits, misses = cache_stats()[0]
+            else:
+                r0 = r
+        bk_ms, rb = cuda_ms(lambda: schedule_round(dp, **kwb), reps=2)
+        max_err(rs, r0)
+        max_err(rb._replace(kernel_iters=r0.kernel_iters), r0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ps = schedule_round_plain(dp, **kws)
+        torch.cuda.synchronize()
+        plain_s_ms = (time.perf_counter() - t0) * 1e3
+        max_err(rs, ps)
+        t0 = time.perf_counter()
+        pb = schedule_round_plain(dp, **kwb)
+        torch.cuda.synchronize()
+        plain_b_ms = (time.perf_counter() - t0) * 1e3
+        max_err(rb, pb)
+    iters = int(r0.iterations)
+    btrips = int(rb.kernel_iters)
+    m0, mS = float(np.mean(ms[0])), float(np.mean(ms[S]))
+    B = block_size(N)
+    NB = N // B
+    io = tensor_bytes(*dp) + tensor_bytes(*r0)
+    window = iters * live_q * 16 * 13
+    cached_bytes = io + window + misses * per_iter + hits * (NB * 4 + B * 5)
+    cached_ops = misses * 2 * N * R * 6 + hits * (NB + B)
+    bms_c, by_c = bound_ms(cached_bytes, cached_ops)
+    bms_b, by_b = bound_ms(io + iters * per_iter, iters * 2 * N * R * 6)
+    report.update(
+        slots=S, block=B, hits=hits, misses=misses, iterations=iters, uncached_ms=ms[0],
+        cached_ms=ms[S], uncached_us_per_iter=m0 * 1e3 / iters,
+        cached_us_per_iter=mS * 1e3 / iters, batch_k=K11_BATCH_K, batch_ms=bk_ms,
+        batch_trips=btrips, batch_us_per_trip=bk_ms * 1e3 / btrips, plain_cached_ms=plain_s_ms,
+        plain_batch_ms=plain_b_ms, launches=launches)
+    log(f"loop shapes [K11, main world]: resolved cache_slots {S} (block {B}); K-B uncached "
+        f"{m0:.2f} ms ({m0 * 1e3 / iters:.1f} us an iteration), cached {mS:.2f} ms "
+        f"({mS * 1e3 / iters:.1f} us an iteration; {hits} hits, {misses} misses) in turns "
+        f"{ms}; batch_k {K11_BATCH_K} {bk_ms:.2f} ms in {btrips} trips "
+        f"({bk_ms * 1e3 / btrips:.1f} us a trip); each equal to its plain version on the card "
+        f"({plain_s_ms:.0f} ms, {plain_b_ms:.0f} ms) and deciding as the uncached round")
+    for name, t, pms, (bms, by) in (("round_fit_cache", mS, plain_s_ms, (bms_c, by_c)),
+                                    ("round_batch_k", bk_ms, plain_b_ms, (bms_b, by_b))):
+        src, rep = SOURCES[name]
+        rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                         launches=launches[name][name], max_abs_err=0.0, equal=True, ms=t,
+                         plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None))
+    return dict(rows=rows, report=report)
+
 
 
 # --- the incremental path --------------------------------------------------------
@@ -1661,6 +1848,260 @@ def pools_path(dev, world: dict, small: dict) -> dict:
                 N=N, G=G, RJ=RJ, P=P, stack_device_ms=ke_dev_ms, lane_slice_device_ms=kg_dev_ms)
 
 
+# --- the simulator path --------------------------------------------------------------
+
+# The small world: gangs and preemption after testdata/golden/
+# preempted_gang_job.yaml (the reference simulator test table's 'Preempted
+# Gang Job'), plus a queue of singles, under the reference's test config
+# (the priority-0..3 ladder, prefer-large ordering); written as dicts, so
+# that the script needs no yaml.
+_REQ = lambda cpu, mem, **extra: dict(resourceRequirements=dict(  # noqa: E731
+    requests=dict(cpu=cpu, memory=mem, **extra)))
+SIM_SMALL_CLUSTER = dict(name="basic", clusters=[dict(
+    name="Cluster1", pool="TestPool",
+    nodeTemplates=[dict(number=8, totalResources=dict(resources=dict(cpu="32",
+                                                                     memory="256Gi")))])])
+SIM_SMALL_WORKLOAD = dict(name="w", queues=[
+    dict(name="A", weight=1, jobTemplates=[dict(
+        number=8, jobSet="foo", priorityClassName="priority-2", requirements=_REQ("32", "256Gi"),
+        runtimeDistribution=dict(minimum="1m"), gangCardinality=8)]),
+    dict(name="B", weight=1, jobTemplates=[dict(
+        number=1, jobSet="bar", priorityClassName="priority-3", requirements=_REQ("32", "256Gi"),
+        runtimeDistribution=dict(minimum="1m"), earliestSubmitTime="30s")]),
+    dict(name="C", weight=2, jobTemplates=[dict(
+        number=24, jobSet="baz", priorityClassName="priority-1", requirements=_REQ("4", "16Gi"),
+        runtimeDistribution=dict(minimum="2m", tailMean="1m"), earliestSubmitTime="90s")]),
+])
+# The scale world: two pools, 8,000 nodes of 32 cpu / 128 Gi and 2,000 of
+# 16 cpu / 64 Gi / 8 GPUs; 64 queues, 100,000 jobs from three templates a
+# queue with shifted-exponential runtimes; a 10 s schedule interval, cut at
+# 10 cycles (five schedule events over the two pools).
+SIM_QUEUES = 64
+SIM_MAX_TIME_S = 45.0
+
+
+def sim_scale_specs():
+    cluster = dict(name="scale", clusters=[
+        dict(name="cpu", pool="cpu", nodeTemplates=[dict(
+            number=8_000, totalResources=dict(resources=dict(cpu="32", memory="128Gi")))]),
+        dict(name="gpu", pool="gpu", nodeTemplates=[dict(
+            number=2_000, totalResources=dict(resources={"cpu": "16", "memory": "64Gi",
+                                                        "nvidia.com/gpu": "8"}))]),
+    ])
+    queues = []
+    for q in range(SIM_QUEUES):
+        queues.append(dict(name=f"q{q:02d}", weight=1 + q % 4, jobTemplates=[
+            dict(id=f"q{q:02d}-small", number=1_000, jobSet="small", requirements=_REQ("1", "4Gi"),
+                 runtimeDistribution=dict(minimum="2m", tailMean="10m")),
+            dict(id=f"q{q:02d}-medium", number=400, jobSet="medium",
+                 priorityClassName="armada-preemptible", requirements=_REQ("8", "32Gi"),
+                 runtimeDistribution=dict(minimum="5m", tailMean="30m")),
+            dict(id=f"q{q:02d}-gpu", number=162 + (q < 32), jobSet="gpu",
+                 requirements=_REQ("4", "16Gi", **{"nvidia.com/gpu": "1"}),
+                 runtimeDistribution=dict(minimum="10m", tailMean="1h")),
+        ]))
+    return cluster, dict(name="scale", randomSeed=7, queues=queues)
+
+
+def sim_small_config():
+    from armada_tpu_torch.core.config import PriorityClass, SchedulingConfig
+
+    pcs = {f"priority-{p}": PriorityClass(f"priority-{p}", priority=p, preemptible=p < 3)
+           for p in range(4)}
+    pcs["priority-2-non-preemptible"] = PriorityClass("priority-2-non-preemptible", priority=2,
+                                                      preemptible=False)
+    return SchedulingConfig(
+        supported_resource_types=(("memory", "1Mi"), ("cpu", "1m"), ("nvidia.com/gpu", "1")),
+        priority_classes=pcs, default_priority_class="priority-3",
+        dominant_resource_fairness_resources=("cpu", "memory", "nvidia.com/gpu"),
+        enable_prefer_large_job_ordering=True, shape_bucket=8,
+        maximum_scheduling_burst=10_000, maximum_per_queue_scheduling_burst=10_000,
+        maximum_resource_fraction_to_schedule={})
+
+
+class plain_versions:
+    """Context in which the round's kernel wrappers (K-B, K-C, K-A) run
+    their plain versions on CUDA tensors: the simulator on the card, with
+    no kernel."""
+
+    def __enter__(self):
+        from armada_tpu_torch.kernels import compact as KC
+        from armada_tpu_torch.kernels import fair_shares as KA
+        from armada_tpu_torch.kernels import round as KB
+        from armada_tpu_torch.models.fair_scheduler import (
+            compact_result_plain, schedule_round_plain,
+        )
+        from armada_tpu_torch.ops.fairness import fair_shares_plain
+
+        def fs(w, c, *, max_iterations=10):
+            if w.dim() == 2:
+                return KA.fair_shares_lanes_plain(w, c, max_iterations)
+            return tuple(fair_shares_plain(w, c, max_iterations))
+
+        self.saved = [(KB, "schedule_round", KB.schedule_round),
+                      (KC, "compact_result", KC.compact_result),
+                      (KA, "fair_shares", KA.fair_shares)]
+        KB.schedule_round = schedule_round_plain
+        KC.compact_result = compact_result_plain
+        KA.fair_shares = fs
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+class cycle_timer:
+    """Per-round wall seconds of the simulator's rounds, split into the
+    host build (build_problem) and the round kernels (K-B, CUDA events);
+    the first round's problem is kept."""
+
+    def __enter__(self):
+        import torch
+
+        from armada_tpu_torch import models as M
+        from armada_tpu_torch.kernels import round as KB
+        from armada_tpu_torch.simulator import simulator as SIM
+
+        self.rows, self.first = [], None
+        build0, round0, entry0 = M.build_problem, KB.schedule_round, SIM.run_scheduling_round
+        cur = {}
+
+        def build(*a, **kw):
+            t0 = time.perf_counter()
+            out = build0(*a, **kw)
+            cur["build_s"] = time.perf_counter() - t0
+            if self.first is None:
+                self.first = out
+            return out
+
+        def rnd(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = round0(*a, **kw)
+            e1.record()
+            cur.setdefault("events", []).append((e0, e1))
+            return out
+
+        def entry(*a, **kw):
+            t0 = time.perf_counter()
+            out = entry0(*a, **kw)
+            torch.cuda.synchronize()
+            round_ms = sum(e0.elapsed_time(e1) for e0, e1 in cur.pop("events", []))
+            self.rows.append(dict(pool=kw.get("pool"), wall_s=time.perf_counter() - t0,
+                                  build_s=cur.pop("build_s"), round_ms=round_ms,
+                                  scheduled=len(out.scheduled), preempted=len(out.preempted),
+                                  kernel_iters=out.kernel_iters))
+            return out
+
+        self.saved = [(M, "build_problem", build0), (KB, "schedule_round", round0),
+                      (SIM, "run_scheduling_round", entry0)]
+        M.build_problem, KB.schedule_round, SIM.run_scheduling_round = build, rnd, entry
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _sim_view(result) -> tuple:
+    return (result.events, [dataclasses.asdict(c) for c in result.cycles], result.makespan,
+            result.total_scheduled, result.total_preempted, result.total_succeeded,
+            result.total_failed, result.never_scheduled)
+
+
+def simulator_path(dev) -> dict:
+    """Simulator.run on the card, whole traces (SimulationResult.events)
+    and per-cycle stats compared: the small world through the kernels and
+    through the plain versions; the scale world uncached and with
+    ARMADA_CACHE_SLOTS = 64; one cycle's problem of the scale world, kernel
+    against plain."""
+    import torch
+
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch.core.config import SchedulingConfig
+    from armada_tpu_torch.simulator import (
+        Simulator, cluster_spec_from_dict, workload_spec_from_dict,
+    )
+
+    report = {}
+    small = (cluster_spec_from_dict(SIM_SMALL_CLUSTER), workload_spec_from_dict(SIM_SMALL_WORKLOAD))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sk = Simulator(*small, sim_small_config(), schedule_interval_s=10.0, device=dev).run()
+    small_s = time.perf_counter() - t0
+    small_launches = dict(kernels.LAUNCHES)
+    if small_launches["round"] <= 0:
+        raise AssertionError("the small simulation launched no round kernel")
+    with uncounted(), plain_versions():
+        sp = Simulator(*small, sim_small_config(), schedule_interval_s=10.0, device=dev).run()
+    if _sim_view(sk) != _sim_view(sp):
+        raise AssertionError("the small simulation's trace differs between kernels and plain")
+    with uncounted():
+        sc = _with_env(dict(ARMADA_CACHE_SLOTS=K11_SLOTS), lambda: Simulator(
+            *small, sim_small_config(), schedule_interval_s=10.0, device=dev).run())
+    if _sim_view(sc) != _sim_view(sk):
+        raise AssertionError("the small simulation's trace differs with the fit cache armed")
+    if sk.total_preempted == 0 or sk.never_scheduled:
+        raise AssertionError(f"the small simulation must preempt and finish: "
+                             f"{sk.total_preempted} preempted, {sk.never_scheduled} left")
+    report["small"] = dict(seconds=small_s, events=len(sk.events), cycles=len(sk.cycles),
+                           preempted=sk.total_preempted, succeeded=sk.total_succeeded,
+                           launches=small_launches)
+    log(f"simulator [small world, gangs and preemption]: {len(sk.events)} events, "
+        f"{len(sk.cycles)} cycles, {sk.total_preempted} preempted, {sk.total_succeeded} "
+        f"succeeded in {small_s:.2f} s; the trace equals the plain versions' and the cached one")
+
+    cluster_doc, workload_doc = sim_scale_specs()
+    scale = (cluster_spec_from_dict(cluster_doc), workload_spec_from_dict(workload_doc))
+    njobs = sum(t.number for q in scale[1].queues for t in q.job_templates)
+    nnodes = sum(t.number for c in scale[0].clusters for t in c.node_templates)
+    runs = {}
+    for slots in (0, K11_SLOTS):
+        kernels.reset_launches()
+        with cycle_timer() as timer:
+            t0 = time.perf_counter()
+            res = _with_env(dict(ARMADA_CACHE_SLOTS=slots), lambda: Simulator(
+                *scale, SchedulingConfig(), schedule_interval_s=10.0, max_time_s=SIM_MAX_TIME_S,
+                device=dev).run())
+            wall = time.perf_counter() - t0
+        runs[slots] = dict(result=res, wall_s=wall, rows=timer.rows, first=timer.first,
+                           launches=dict(kernels.LAUNCHES))
+        log(f"simulator [scale world, {nnodes} nodes x {njobs} jobs, cache_slots {slots}]: "
+            f"{len(res.cycles)} cycles in {wall:.1f} s; per cycle (pool, wall s, build s, "
+            f"round ms): " + ", ".join(
+                f"({r['pool']}, {r['wall_s']:.2f}, {r['build_s']:.2f}, {r['round_ms']:.1f})"
+                for r in timer.rows))
+    if len(runs[0]["result"].cycles) != 10:
+        raise AssertionError(f"the scale world ran {len(runs[0]['result'].cycles)} cycles, not 10")
+    if _sim_view(runs[0]["result"]) != _sim_view(runs[K11_SLOTS]["result"]):
+        raise AssertionError("the scale world's trace differs with the fit cache armed")
+    if runs[K11_SLOTS]["launches"]["round_fit_cache"] <= 0:
+        raise AssertionError("the cached scale run launched no cached round")
+    # the first cycle's problem (the busiest), kernel against plain,
+    # uncached and cached
+    problem, ctx = runs[K11_SLOTS]["first"]
+    one = {}
+    with uncounted():
+        for slots in (0, K11_SLOTS):
+            one[slots] = check_round("simulator cycle", problem, round_meta(ctx), dev,
+                                     cache_slots=slots)
+    report["scale"] = dict(
+        nodes=nnodes, jobs=njobs, one_cycle=one,
+        **{f"cache_slots={k}": dict(wall_s=v["wall_s"], cycles=v["rows"],
+                                    launches=v["launches"],
+                                    scheduled=v["result"].total_scheduled,
+                                    events=len(v["result"].events))
+           for k, v in runs.items()})
+    log(f"simulator [scale world]: traces equal uncached and cached "
+        f"({runs[0]['result'].total_scheduled} scheduled, {len(runs[0]['result'].events)} events); "
+        f"one cycle's problem (N={int(problem.node_total.shape[0])}, "
+        f"G={int(problem.g_req.shape[0])}): kernel == plain uncached and cached")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -1725,6 +2166,7 @@ def main() -> int:
     report["incremental"] = inc
     pools = pools_path(dev, world, pools_small)
     report["pools"] = pools
+    report["simulator"] = simulator_path(dev)
     report["total_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['total_s']:.1f} s in all, the kernels' build included")
     os.makedirs("chiprun_out", exist_ok=True)

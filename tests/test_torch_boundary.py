@@ -176,20 +176,39 @@ def test_pool_kernels_match_plain_on_the_card():
     assert min(report["evict"]["rescheduled"]) > 0
 
 
+@pytest.mark.cuda
+def test_k11_kernels_match_plain_on_the_card():
+    """K11 -- the fit cache, the pick chain and unroll -- in K-B and K-D
+    against the plain version on small problems (with the loop's other
+    shapes: chip_smoke.check_loop_kernels).  Run on a machine with a card:
+    `python -m pytest --noconftest -m cuda tests/test_torch_boundary.py`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke
+
+    report = chip_smoke.check_loop_kernels(torch.device("cuda", 0))
+    assert report["burst cache_slots=4"]["cache_hits"] > 0
+    assert report["burst batch_k=8"]["kernel_iters"] < report["burst base"]["kernel_iters"]
+
+
 def test_serving_subpackages_import_no_jax():
-    """The port's job database and scheduling cycle (armada_tpu_torch.jobdb,
-    armada_tpu_torch.scheduler) are covered by the import check: every
-    module of both imports without jax or the JAX package."""
+    """The port's job database, scheduling cycle and simulator
+    (armada_tpu_torch.jobdb, armada_tpu_torch.scheduler,
+    armada_tpu_torch.simulator) are covered by the import check: every
+    module of the three imports without jax or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "import armada_tpu_torch.jobdb, armada_tpu_torch.scheduler\n"
+        "import armada_tpu_torch.jobdb, armada_tpu_torch.scheduler, armada_tpu_torch.simulator\n"
         "names = []\n"
-        "for pkg in (armada_tpu_torch.jobdb, armada_tpu_torch.scheduler):\n"
+        "for pkg in (armada_tpu_torch.jobdb, armada_tpu_torch.scheduler,\n"
+        "            armada_tpu_torch.simulator):\n"
         "    names += [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "want = {'armada_tpu_torch.jobdb.jobdb', 'armada_tpu_torch.jobdb.job',\n"
         "        'armada_tpu_torch.scheduler.algo', 'armada_tpu_torch.scheduler.incremental_algo',\n"
-        "        'armada_tpu_torch.scheduler.pool_serving'}\n"
+        "        'armada_tpu_torch.scheduler.pool_serving', 'armada_tpu_torch.simulator.simulator',\n"
+        "        'armada_tpu_torch.simulator.spec', 'armada_tpu_torch.simulator.sink',\n"
+        "        'armada_tpu_torch.simulator.__main__'}\n"
         "assert want <= set(names), names\n" + _FORBIDDEN
     )
     out = _run(code)

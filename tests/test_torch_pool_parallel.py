@@ -662,20 +662,29 @@ def test_algo_refuses_what_is_not_ported():
 
 
 def test_armed_loop_shapes_raise(monkeypatch):
-    """ARMADA_CACHE_SLOTS / ARMADA_BATCH_K above their accelerator defaults
-    arm K11's variants, which are not ported: the round raises instead of
-    ignoring them.  ARMADA_COMMIT_K is ported (tests/test_torch_loop_shapes
-    *.py); an armed ARMADA_COMMIT_K resolves batch_k to 1, as in JAX."""
+    """ARMADA_CACHE_SLOTS / ARMADA_BATCH_K arm K11's variants, which are
+    ported now: the armed round runs and equals the JAX package's round
+    under the same environment, kernel_iters included (the cache off on
+    both sides for the pick chain: the JAX package's CPU default would arm
+    it, and the cache forces batch_k = 1).  ARMADA_COMMIT_K is ported
+    (tests/test_torch_loop_shapes*.py); an armed ARMADA_COMMIT_K resolves
+    batch_k to 1, as in JAX."""
     stacked, lanes, meta = _synthetic_lanes(8, 2)
     p = problem_from_numpy(lanes[0], "cpu")
-    for name, value in (("ARMADA_CACHE_SLOTS", "64"), ("ARMADA_BATCH_K", "8")):
-        monkeypatch.setenv(name, value)
-        with pytest.raises(NotImplementedError):
-            t_fs.schedule_round(p, **meta, device="cpu")
-        monkeypatch.delenv(name)
+    for env in (dict(ARMADA_CACHE_SLOTS="64"), dict(ARMADA_CACHE_SLOTS="0", ARMADA_BATCH_K="8")):
+        for name, value in env.items():
+            monkeypatch.setenv(name, value)
+        want = jax_fs.schedule_round(lanes[0], **meta)
+        got = t_fs.schedule_round(p, **meta, device="cpu")
+        for field, a, b in zip(got._fields, want, got):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f"{env} {field}")
+        assert int(got.n_slots) > 0
+        for name in env:
+            monkeypatch.delenv(name)
     monkeypatch.setenv("ARMADA_COMMIT_K", "1")
     assert int(t_fs.schedule_round(p, **meta, device="cpu").n_slots) > 0
     monkeypatch.setenv("ARMADA_BATCH_K", "8")
     monkeypatch.setenv("ARMADA_COMMIT_K", "8")
     assert t_fs.round_statics(p)["commit_k"] == 8
+    assert t_fs.round_statics(p)["batch_k"] == 1
     assert int(t_fs.schedule_round(p, **meta, device="cpu").n_slots) > 0

@@ -169,9 +169,14 @@ def test_problem_from_numpy_keeps_fields():
 
 def test_unported_statics_raise():
     """K11's decision-neutral variants (the per-key fit cache, the batch_k
-    pick chain, unroll) are not ported and raise; prefer_large, commit_k > 1
-    and TR > 1 are ported (tests/test_torch_loop_shapes.py)."""
+    pick chain, unroll) are ported now: each runs and equals the JAX
+    package's round at the same statics, kernel_iters included (the rest
+    of K11 is in tests/test_torch_fit_cache.py)."""
     problem, meta = jax_synthetic(**SYNTH, max_gang_cardinality=1, seed=0)
     for kw in (dict(batch_k=8), dict(cache_slots=64), dict(unroll=2)):
-        with pytest.raises(NotImplementedError):
-            schedule_round(problem, **meta, **kw, device="cpu")
+        statics = dict(UNCACHED, **kw)
+        ref = jax_round(problem, **meta, **statics)
+        got = result_to_numpy(schedule_round(problem, **meta, **statics, device="cpu"))
+        for name, a, b in zip(got._fields, ref, got):
+            np.testing.assert_array_equal(np.asarray(a), b, err_msg=f"{kw} {name}")
+        assert int(got.n_slots) > 0
