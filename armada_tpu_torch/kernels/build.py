@@ -22,8 +22,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("fair_shares.cu", "round.cu", "compact.cu", "slab.cu", "verify.cu", "explain.cu",
-           "lanes.cu")
+SOURCES = ("fair_shares.cu", "round.cu", "round_wide.cu", "round_cluster.cu", "compact.cu",
+           "slab.cu", "verify.cu", "explain.cu", "lanes.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -104,6 +104,12 @@ def library() -> ctypes.CDLL:
         lib.armada_round_prologue.restype = ci
         lib.armada_round_main.argtypes = [vp, vp, vp, ci, vp]
         lib.armada_round_main.restype = ci
+        lib.armada_round_sharded_main.argtypes = [vp, ci, vp, vp, ci, vp]
+        lib.armada_round_sharded_main.restype = ci
+        lib.armada_round_cluster_max.argtypes = [vp, ci]
+        lib.armada_round_cluster_max.restype = ci
+        lib.armada_round_wide_need.argtypes = [ci, ci, vp]
+        lib.armada_round_wide_need.restype = None
         lib.armada_round_args_size.argtypes = []
         lib.armada_round_args_size.restype = ci
         lib.armada_compact.argtypes = [vp, vp]

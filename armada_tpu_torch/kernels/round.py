@@ -1,9 +1,18 @@
-"""Wrappers of kernels K-B and K-D (csrc/round.cu): the scheduling round,
-solo or stacked over P pool lanes, at every loop shape: the node-type bias,
-prefer-large ordering, the multi-commit extension (K10) up to commit_k =
-MAX_COMMIT_K, and K11 -- the per-key fit cache (any cache_slots; its tables,
-per lane, allocated here), the certified pick chain up to batch_k =
-MAX_BATCH_K, and unroll.
+"""Wrappers of kernels K-B, K-D and K-K (csrc/round.cu, round_wide.cu,
+round_cluster.cu): the scheduling round, solo, stacked over P pool lanes, or
+sharded over a mesh's node shards, at every loop shape: the node-type bias,
+prefer-large ordering, the multi-commit extension (K10) at any commit_k, and
+K11 -- the per-key fit cache (any cache_slots; its tables, per lane,
+allocated here), the certified pick chain at any batch_k, and unroll.  Up
+to MAX_COMMIT_K and MAX_BATCH_K the extension's and the chain's tables live
+in shared memory; wider ones run the wide instantiations, whose tables live
+in scratch allocated here by the width (`wide_need`).
+
+K-K (`mesh=` a parallel.mesh.Mesh of S node shards, S >= 2): the solo round
+whose placement loop is one cluster of S CTAs, each reducing its node
+pass over N / S nodes; its state buffers hold S replicas, replica 0 the
+result.  The loop shapes of the narrow solo loop run sharded; the wide ones
+raise (ROADMAP Queue 2).
 
 On the card the round is a sequence of launches on the current stream with
 no host synchronisation: the prologue scatter and suffix sum, the fair
@@ -25,11 +34,10 @@ from armada_tpu_torch.models.fair_scheduler import _INF, block_size
 
 MAX_RESOURCES = 8
 MAX_FIXPOINT_ITERS = 128
-# csrc/round.cu MAX_COMMIT_K: the widest multi-commit the kernel holds in
-# registers and shared memory
+# csrc/round.cuh MAX_COMMIT_K and MAX_BATCH_K: the widest multi-commit and
+# the longest pick chain whose tables the narrow instantiations hold in
+# shared memory; wider ones run the wide instantiations
 MAX_COMMIT_K = 16
-# csrc/round.cu MAX_BATCH_K: the longest pick chain the kernel holds in
-# shared memory
 MAX_BATCH_K = 16
 
 _F32 = ("node_total", "run_req", "g_req", "g_price", "g_spot_price", "q_weight", "q_cds",
@@ -56,15 +64,17 @@ _PTR_FIELDS = (
     "nmin", "rmin", "cost", "scal", "type_bias", "key_type_row", "g_queue", "okey", "q_nskip",
     "fitc_clean", "fitc_lvl", "cscore", "bmc_clean", "bmc_lvl", "cslot_key", "cslot_lvl",
     "cslot_req", "bk_m0", "bk_ml", "bk_fit0", "bk_fitl", "sim_keys", "simpos", "sim_row",
+    "wide_i", "wide_f", "wide_b",
 )
 _INT_FIELDS = ("N", "R", "G", "Q", "RJ", "K", "T", "C", "P1", "S", "W", "max_iter", "BR",
                "P", "TR", "prefer_large", "commit_k", "CS", "CB", "batch_k", "unroll")
+_LONG_FIELDS = ("WI", "WF", "WB")
 
 
 class RoundArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _PTR_FIELDS] + [
         (n, ctypes.c_int) for n in _INT_FIELDS
-    ]
+    ] + [(n, ctypes.c_longlong) for n in _LONG_FIELDS]
 
 
 # The last launch's [8, P] scalar block (slots 6 and 7: the fit cache's hits
@@ -97,18 +107,26 @@ def _check_problem(p, lanes: int) -> None:
 
 def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_iterations: int,
                    prefer_large: bool = False, commit_k: int = 1, cache_slots: int = 0,
-                   batch_k: int = 1, unroll: int = 1):
-    """K-B: run the round on the problem's device: kernels for CUDA, the
-    plain version for the CPU.  The statics are resolved ones
-    (models/fair_scheduler.py round_statics)."""
+                   batch_k: int = 1, unroll: int = 1, mesh=None):
+    """K-B, or K-K when `mesh` has S >= 2 node shards: run the round on the
+    problem's device: kernels for CUDA, the plain version for the CPU.  The
+    statics are resolved ones (models/fair_scheduler.py round_statics).
+    The sharded round's node axis must divide into the shards
+    (parallel/mesh.py shard_problem pads it); sharding changes nothing it
+    decides, so on the CPU it is the plain round."""
     from armada_tpu_torch.models.fair_scheduler import schedule_round_plain
 
     kw = dict(num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
               max_iterations=max_iterations, prefer_large=prefer_large, commit_k=commit_k,
               cache_slots=cache_slots, batch_k=batch_k, unroll=unroll)
+    shards = 1 if mesh is None else int(mesh.node_shards)
+    N = int(p.node_total.shape[0])
+    if N % shards:
+        raise ValueError(f"sharded round: the node axis {N} does not divide into {shards} "
+                         "shards (parallel/mesh.py shard_problem pads it)")
     if not p.g_req.is_cuda:
         return schedule_round_plain(p, **kw)
-    return _launch(p, 0, **kw)
+    return _launch(p, 0, shards=shards, **kw)
 
 
 def schedule_round_stacked(p, *, num_levels: int, max_slots: int, slot_width: int,
@@ -128,33 +146,73 @@ def schedule_round_stacked(p, *, num_levels: int, max_slots: int, slot_width: in
     return _launch(p, int(p.g_req.shape[0]), **kw)
 
 
+def wide_need(commit_k: int, batch_k: int) -> tuple:
+    """(ints, floats, bytes) of wide scratch a lane needs at these widths
+    (csrc/round.cuh wide_need; zeros up to MAX_COMMIT_K and MAX_BATCH_K)."""
+    out = (ctypes.c_longlong * 3)()
+    library().armada_round_wide_need(int(commit_k), int(batch_k), out)
+    return tuple(int(x) for x in out)
+
+
+def wide_scratch(lanes: int, commit_k: int, batch_k: int, dev) -> tuple:
+    """`wide_need` for `lanes` lanes, or a RuntimeError that names the bytes
+    the tables need where the card has fewer free."""
+    WI, WF, WB = wide_need(commit_k, batch_k)
+    need = lanes * (4 * WI + 4 * WF + WB)
+    free = torch.cuda.mem_get_info(dev)[0]
+    if need > free:
+        raise RuntimeError(
+            f"round kernel: commit_k={commit_k}, batch_k={batch_k} needs {need} bytes of "
+            f"scratch for its tables, the card has {free} free")
+    return WI, WF, WB
+
+
+def cluster_capacity(shards: int, *, commit_k: int = 1, prefer_large: bool = False,
+                     batch_k: int = 1, het: bool = False) -> int:
+    """How many clusters of `shards` CTAs of K-K's loop, at this loop shape,
+    the card can hold at once (cudaOccupancyMaxActiveClusters): 0 when it
+    cannot launch one.  The query reads only the loop shape's fields."""
+    args = RoundArgs()
+    args.commit_k, args.batch_k = int(commit_k), int(batch_k)
+    args.prefer_large, args.TR = int(bool(prefer_large)), 2 if het else 1
+    return int(library().armada_round_cluster_max(ctypes.byref(args), int(shards)))
+
+
 def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
             max_iterations: int, prefer_large: bool, commit_k: int, cache_slots: int = 0,
-            batch_k: int = 1, unroll: int = 1):
+            batch_k: int = 1, unroll: int = 1, shards: int = 1):
     """The launch sequence; `lanes` = 0 for a solo round (no lane axis),
-    else P."""
+    else P; `shards` > 1 for K-K (solo)."""
     from armada_tpu_torch.models.fair_scheduler import RoundResult
 
-    if not 1 <= int(commit_k) <= MAX_COMMIT_K:
-        raise ValueError(f"round kernel: commit_k={commit_k} is outside 1..{MAX_COMMIT_K}, "
-                         f"the kernel's compile-time maximum (csrc/round.cu MAX_COMMIT_K)")
+    if int(commit_k) < 1:
+        raise ValueError(f"round kernel: commit_k={commit_k} must be >= 1")
     if prefer_large and commit_k > 1:
         raise ValueError("round kernel: prefer_large runs at commit_k=1 (round_statics resolves it)")
-    if not 1 <= int(batch_k) <= MAX_BATCH_K:
-        raise ValueError(f"round kernel: batch_k={batch_k} is outside 1..{MAX_BATCH_K}, the "
-                         f"kernel's compile-time maximum (csrc/round.cu MAX_BATCH_K)")
+    if int(batch_k) < 1:
+        raise ValueError(f"round kernel: batch_k={batch_k} must be >= 1")
     if batch_k > 1 and (commit_k > 1 or prefer_large or cache_slots > 0):
         raise ValueError("round kernel: batch_k > 1 runs only at commit_k=1, without prefer_large "
                          "and without the fit cache (round_statics resolves it)")
     if int(cache_slots) < 0 or int(unroll) < 1:
         raise ValueError(f"round kernel: cache_slots={cache_slots} and unroll={unroll} must be "
                          f">= 0 and >= 1")
+    wide = commit_k > MAX_COMMIT_K or batch_k > MAX_BATCH_K
+    if shards > 1:
+        if lanes:
+            raise ValueError("sharded round: a solo problem (pool stacking is off under the mesh)")
+        if wide:
+            raise ValueError(
+                f"sharded round: commit_k={commit_k} / batch_k={batch_k} run the wide "
+                f"instantiations, which K-K does not shard (above {MAX_COMMIT_K} / {MAX_BATCH_K}; "
+                "ROADMAP Queue 2)")
     _check_problem(p, lanes)
     from armada_tpu_torch.kernels.fair_shares import fair_shares
 
     dev = p.g_req.device
     o = 1 if lanes else 0
-    lead = (lanes,) if lanes else ()
+    # state buffers: one per lane (K-D), one per replica (K-K), or one
+    lead = (lanes,) if lanes else (shards,) if shards > 1 else ()
     P = max(lanes, 1)
     N, R = (int(x) for x in p.node_total.shape[o:])
     G = int(p.g_req.shape[o])
@@ -173,6 +231,14 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         raise ValueError("round kernel: every axis must be non-empty")
     if P > 65535:
         raise ValueError(f"round kernel: at most 65535 lanes, got {P}")
+    if shards > 1 and cache_slots > 0 and (N // shards) % block_size(N):
+        raise ValueError(
+            f"sharded round: the fit cache's {block_size(N)}-node blocks must tile each shard of "
+            f"{N // shards} nodes (ROADMAP Queue 2)")
+    if shards > 1 and cluster_capacity(shards, commit_k=commit_k, prefer_large=prefer_large,
+                                       batch_k=batch_k, het=TR > 1) < 1:
+        raise RuntimeError(f"sharded round: the card cannot launch a cluster of {shards} CTAs "
+                           "of the round's loop (cudaOccupancyMaxActiveClusters is 0)")
 
     def zeros(shape, dtype):
         return torch.zeros(lead + shape, dtype=dtype, device=dev)
@@ -186,7 +252,7 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         float_used=zeros((R,), f32),
         sched_res=zeros((R,), f32),
         spot_res=zeros((R,), f32),
-        spot_price=torch.zeros((P,), dtype=f32, device=dev),
+        spot_price=torch.zeros((max(P, shards),), dtype=f32, device=dev),
         run_evicted=zeros((RJ,), b),
         run_rescheduled=zeros((RJ,), b),
         pending=zeros((RJ,), b),
@@ -208,8 +274,9 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         cost=zeros((RJ,), f32),
         okey=zeros((Q,), f32),
         q_nskip=zeros((Q,), i32),
-        # [8, P]: slot k of every lane is the contiguous row scal[k]
-        scal=torch.zeros((8, P), dtype=i32, device=dev),
+        # [8, P]: slot k of every lane is the contiguous row scal[k]; the
+        # sharded round's replicas each hold their own [8, 1]
+        scal=torch.zeros((shards * 8, P), dtype=i32, device=dev),
     )
     # the fit cache's tables (empty slots: key -1, block minima +INF) and
     # the pick chain's scratch, per lane
@@ -232,8 +299,11 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         simpos=zeros((BQ,), i32),
         sim_row=zeros((BQ, R), f32),
     )
-    nodes_w = torch.full((P, W), N, dtype=i32, device=dev)
-    counts_w = torch.zeros((P, W), dtype=i32, device=dev)
+    # the wide instantiations' tables
+    WI, WF, WB = wide_scratch(P, commit_k, batch_k, dev) if wide else (0, 0, 0)
+    st.update(wide_i=zeros((WI,), i32), wide_f=zeros((WF,), f32), wide_b=zeros((WB,), torch.uint8))
+    nodes_w = torch.full((P * shards, W), N, dtype=i32, device=dev)
+    counts_w = torch.zeros((P * shards, W), dtype=i32, device=dev)
     lib = library()
     if ctypes.sizeof(RoundArgs) != lib.armada_round_args_size():
         raise RuntimeError("RoundArgs layout differs between Python and csrc/round.cu")
@@ -248,17 +318,29 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
                                      BR, P, TR, int(bool(prefer_large)), int(commit_k), CS, CB,
                                      int(batch_k), int(unroll))):
         setattr(args, name, v)
+    args.WI, args.WF, args.WB = WI, WF, WB
     stream = stream_handle()
     check(lib.armada_round_prologue(ctypes.byref(args), stream), "round prologue")
     fs, dcafs, _ = fair_shares(p.q_weight, p.q_cds)
     args.fair_share = fs.data_ptr()
     args.dcafs = dcafs.data_ptr()
-    check(
-        lib.armada_round_main(ctypes.byref(args), nodes_w.data_ptr(), counts_w.data_ptr(),
-                              MAX_FIXPOINT_ITERS, stream),
-        "round kernels",
-    )
-    kernels.LAUNCHES["round_stacked" if lanes else "round"] += 1
+    if shards > 1:
+        check(
+            lib.armada_round_sharded_main(ctypes.byref(args), shards, nodes_w.data_ptr(),
+                                          counts_w.data_ptr(), MAX_FIXPOINT_ITERS, stream),
+            "sharded round kernels",
+        )
+        kernels.LAUNCHES["round_sharded"] += 1
+        # replica 0 is the round's state (spot_price is [S], scal [8 S, 1])
+        st = {k: v if k in ("spot_price", "scal") else v[0] for k, v in st.items()}
+        st["scal"] = st["scal"][:8]
+    else:
+        check(
+            lib.armada_round_main(ctypes.byref(args), nodes_w.data_ptr(), counts_w.data_ptr(),
+                                  MAX_FIXPOINT_ITERS, stream),
+            "round kernels",
+        )
+        kernels.LAUNCHES["round_stacked" if lanes else "round"] += 1
     _LAST["scal"] = st["scal"]
     if commit_k > 1:
         kernels.LAUNCHES["round_multi_commit"] += 1

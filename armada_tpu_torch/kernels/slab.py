@@ -79,16 +79,29 @@ def _splice(gq_prev, rem_pos, ins_pos, ins_val):
 
 
 def apply_delta(prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, gq_args, *,
-                ev_base: int, splice: bool):
+                ev_base: int, splice: bool, mesh=None):
     """A new SchedulingProblem: `prev` with `fulls` replaced, the gang, run
     and evictee rows scattered in, and (splice=True) gq_gang rebuilt from
     (rem_pos, ins_pos, ins_val).  Index vectors are i32 and bucket-padded
     with the sentinels G / RJ.  CPU problems run the plain version; CUDA
-    problems the kernel."""
+    problems the kernel.
+
+    `mesh`: the apply of a mesh cache (parallel/mesh_slab.py), the
+    counterpart of the JAX package's `_sharded_apply_for` (K-L).  On the
+    serving mesh the job axis is not split, so every row it scatters is
+    replicated, and the node-axis fields arrive whole in `fulls`; the
+    mesh's shard-contiguous node layout is the plain layout on one card.
+    So the kernel is K-H's, on a problem whose node axis divides into the
+    mesh's node shards; its launches count as "slab_sharded"."""
     from armada_tpu_torch.models.slab import (
         _EV_FIELDS, _RR_FIELDS, _SG_FIELDS, apply_delta_plain,
     )
 
+    if mesh is not None:
+        N = int(prev.node_total.shape[0])
+        if N % mesh.node_shards or int(prev.g_req.shape[0]) % mesh.job_shards:
+            raise ValueError(f"sharded apply: the resident problem (N={N}) does not divide into "
+                             f"the mesh's {mesh.node_shards} x {mesh.job_shards} shards")
     if not prev.g_req.is_cuda:
         return apply_delta_plain(prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls,
                                  gq_args, ev_base=ev_base, splice=splice)
@@ -135,5 +148,5 @@ def apply_delta(prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, gq_args,
     out.update(fresh)
     if splice:
         out["gq_gang"] = _splice(prev.gq_gang, *gq_args)
-    kernels.LAUNCHES["slab"] += 1
+    kernels.LAUNCHES["slab" if mesh is None else "slab_sharded"] += 1
     return type(prev)(**out)

@@ -11,7 +11,9 @@ can be verified (`verify`) and, on its cadence, explained (`explain`).
 `run_round_on_device` is the serial path: one round for one pool, with the
 gang-transaction rollback loop.  `dispatch_pool_rounds` is the
 pool-parallel one: every pool's round is dispatched before any is fetched,
-and pools whose problems match in shape run as one stacked round.
+and pools whose problems match in shape run as one stacked round.  While
+the mesh serving plane is armed (parallel/serving.py) every round runs over
+the serving mesh's node shards (kernel K-K on a card) and nothing stacks.
 """
 
 from __future__ import annotations
@@ -60,26 +62,67 @@ def _kernel_kwargs(problem, ctx, config) -> dict:
     return kw
 
 
-def _round_env(problem, ctx, config, explain_enabled=True):
+def _serving_mesh(device):
+    """The mesh rounds on `device` run over (None: mesh serving off or its
+    ladder exhausted)."""
+    from armada_tpu_torch.parallel.serving import mesh_serving
+
+    ms = mesh_serving()
+    return ms.serving_mesh(device) if ms.enabled() else None
+
+
+def _round_env(problem, ctx, config, explain_enabled, device):
     """The per-round prologue shared by run_round_on_device and the
-    pool-parallel dispatchers: the kernel statics and the ONE explain
-    cadence tick this round gets (exactly once per pool round, even when a
-    stacked dispatch hands the lane to a solo one).  Away rounds pass
-    explain_enabled=False and never tick: their outcome.explain is
-    discarded, and a tick would shift the host pool's cadence."""
+    pool-parallel dispatchers: the kernel statics -- with the serving mesh
+    as `mesh` while one is armed: the round learns of the mesh here,
+    explicitly -- and the ONE explain cadence tick this round gets (exactly
+    once per pool round, even when a stacked dispatch hands the lane to a
+    solo one).  Away rounds pass explain_enabled=False and never tick:
+    their outcome.explain is discarded, and a tick would shift the host
+    pool's cadence."""
     from armada_tpu_torch.models import explain as _explain
 
     explain_armed = bool(explain_enabled) and _explain.explain_due(getattr(ctx, "pool", ""))
-    return _kernel_kwargs(problem, ctx, config), explain_armed
+    kw = _kernel_kwargs(problem, ctx, config)
+    mesh = _serving_mesh(device)
+    if mesh is not None:
+        kw["mesh"] = mesh
+    return kw, explain_armed
 
 
-def _build_device_problem(problem, device_problem, device):
+def _build_device_problem(problem, device_problem, device, mesh=None):
     """The round's device problem: the caller's (a value, or a zero-arg
-    callable such as DeviceDeltaCache.apply), else a fresh upload."""
+    callable such as DeviceDeltaCache.apply), else a fresh upload -- sharded
+    onto the serving mesh when one is armed (from-scratch and away rounds),
+    so every round sees the same placement.  Incremental rounds arrive on
+    the mesh through MeshDeviceDeltaCache, their node axis aligned to it by
+    the builders; a problem that does not divide into the mesh is a build
+    bug and raises."""
     dp = device_problem() if callable(device_problem) else device_problem
     if dp is None:
-        dp = problem_from_numpy(problem, device)
+        if mesh is not None:
+            from armada_tpu_torch.parallel.mesh import shard_problem
+
+            dp = shard_problem(problem, mesh)
+        else:
+            dp = problem_from_numpy(problem, device)
+    elif mesh is not None:
+        from armada_tpu_torch.parallel.mesh import _check_divisible
+
+        _check_divisible(dp, mesh)
     return dp
+
+
+def _run_round_on_mesh(host_problem, ctx, config, kernel_kwargs, mesh, explain_armed=False):
+    """Re-run the SAME round over a (smaller) mesh from host tables: the
+    rung of the degrade ladder between the full mesh and the single card,
+    one full sharded upload.  The JAX package's failover loop calls it on a
+    failed round; the port's waits for ROADMAP item 8."""
+    from armada_tpu_torch.parallel.mesh import shard_problem
+
+    kw = dict(kernel_kwargs, mesh=mesh)
+    return _round_body(shard_problem(host_problem, mesh), ctx, kw, mesh.device, (),
+                       explain_armed)
 
 
 def run_round_on_device(problem, ctx, config, device="cuda", device_problem=None,
@@ -101,11 +144,13 @@ def run_round_on_device(problem, ctx, config, device="cuda", device_problem=None
     JAX package's signature; the port has no CPU failover rung that would
     read it yet (ROADMAP item 8).  `explain_enabled=False` (away rounds)
     leaves the explain cadence untouched.  RoundVerificationError
-    propagates: nothing is re-run quietly."""
+    propagates: nothing is re-run quietly.  While the mesh serving plane is
+    armed the round runs over the serving mesh; a failed round does not yet
+    walk the JAX package's degrade ladder (ROADMAP item 8)."""
     device = _resolve_device(device)
-    kernel_kwargs, explain_armed = _round_env(problem, ctx, config, explain_enabled)
-    return _round_body(_build_device_problem(problem, device_problem, device), ctx,
-                       kernel_kwargs, device, shadow_work, explain_armed)
+    kernel_kwargs, explain_armed = _round_env(problem, ctx, config, explain_enabled, device)
+    dp = _build_device_problem(problem, device_problem, device, kernel_kwargs.get("mesh"))
+    return _round_body(dp, ctx, kernel_kwargs, device, shadow_work, explain_armed)
 
 
 def dispatch_round_on_device(problem, ctx, config, device="cuda", device_problem=None,
@@ -123,7 +168,7 @@ def dispatch_round_on_device(problem, ctx, config, device="cuda", device_problem
     propagates out of ``finish()`` -- there is no failover ladder yet
     (ROADMAP item 8)."""
     device = _resolve_device(device)
-    env = _round_env(problem, ctx, config, explain_enabled)
+    env = _round_env(problem, ctx, config, explain_enabled, device)
     return _dispatch_one(problem, ctx, device_problem, env, device, shadow_work)
 
 
@@ -131,8 +176,8 @@ def _dispatch_one(problem, ctx, device_problem, env, device, shadow_work=()):
     """dispatch_round_on_device with a precomputed _round_env (the explain
     tick happened there, once per round)."""
     kernel_kwargs, explain_armed = env
-    handle = _dispatch_body(_build_device_problem(problem, device_problem, device), ctx,
-                            kernel_kwargs, device, shadow_work, explain_armed)
+    dp = _build_device_problem(problem, device_problem, device, kernel_kwargs.get("mesh"))
+    handle = _dispatch_body(dp, ctx, kernel_kwargs, device, shadow_work, explain_armed)
     return lambda: _finish_body(handle)
 
 
@@ -165,16 +210,19 @@ def dispatch_pool_rounds(specs, config, allow_stacking=True, device="cuda"):
     covered.
 
     The port runs the JAX package's inline discipline only (no watchdog
-    deadline, no supervisor, no serving mesh, no fault drills), so
-    stacking reduces to ``allow_stacking and len(specs) > 1``;
-    ``dispatch_failed`` is always empty (no dispatch walks a failover
-    ladder), and a RoundVerificationError propagates out of the failing
-    pool's finish (ROADMAP item 8)."""
+    deadline, no supervisor, no fault drills), so stacking reduces to
+    ``allow_stacking and len(specs) > 1`` while the mesh serving plane is
+    off -- under the mesh every pool's round runs sharded and alone, as in
+    the JAX package; ``dispatch_failed`` is always empty (no dispatch walks
+    a failover ladder), and a RoundVerificationError propagates out of the
+    failing pool's finish (ROADMAP item 8)."""
+    from armada_tpu_torch.parallel.serving import mesh_serving
+
     device = _resolve_device(device)
-    envs = [_round_env(s.problem, s.ctx, config, s.explain_enabled) for s in specs]
+    envs = [_round_env(s.problem, s.ctx, config, s.explain_enabled, device) for s in specs]
     finishes: list = [None] * len(specs)
     dispatch_failed: set = set()
-    if not (allow_stacking and len(specs) > 1):
+    if not (allow_stacking and len(specs) > 1 and not mesh_serving().enabled()):
         for i, s in enumerate(specs):
             finishes[i] = _dispatch_one(s.problem, s.ctx, s.device_problem, envs[i], device,
                                         s.shadow_work)

@@ -165,11 +165,14 @@ def schedule_round(
     batch_k: int = -1,
     commit_k: int = -1,
     device="cuda",
+    mesh=None,
 ) -> RoundResult:
     """Run one scheduling round.  `p` may hold numpy arrays (it is moved to
     `device` first) or tensors, which must lie on `device`.  A CUDA device
     runs the kernels; the CPU runs the plain version.  The statics resolve
-    as in `round_statics`."""
+    as in `round_statics`.  `mesh` (parallel.mesh.Mesh): the round runs
+    over its node shards (kernel K-K on a card); the problem's node axis
+    must divide into them."""
     from armada_tpu_torch.models.state import problem_from_numpy, problem_device
 
     device = torch.device(device)
@@ -188,6 +191,8 @@ def schedule_round(
     )
     from armada_tpu_torch.kernels.round import schedule_round as wrapper
 
+    if mesh is not None:
+        statics["mesh"] = mesh
     return wrapper(p, num_levels=num_levels, max_slots=max_slots, slot_width=slot_width,
                    **statics)
 

@@ -61,9 +61,17 @@ from armada_tpu_torch.models.problem import (
 def _node_bucket(bucket: int) -> int:
     """Node-axis pad bucket: min(bucket, 1024) -- the kernel scans O(Q) per
     iteration and node churn is rare, so the node axis takes a smaller
-    bucket than the job axis.  (The JAX package rounds this up to its mesh
-    serving shard multiple; on one card that multiple is 1.)"""
-    return min(bucket, 1024)
+    bucket than the job axis -- rounded up to the mesh serving shard
+    multiple (parallel/serving.mesh_axis_multiple, 1 when mesh serving is
+    off), so a node-axis-sharded slab always divides the mesh:
+    divisibility is a build-time property, never a mid-serve error."""
+    nb = min(bucket, 1024)
+    from armada_tpu_torch.parallel.serving import mesh_axis_multiple
+
+    mult = mesh_axis_multiple()
+    if mult > 1:
+        nb = ((nb + mult - 1) // mult) * mult
+    return nb
 
 
 _INF = np.float32(3.0e38)

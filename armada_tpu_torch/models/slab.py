@@ -304,9 +304,10 @@ class DeviceDeltaCache:
 
     def __init__(self, device="cuda"):
         self.device = _resolve_device(device)
-        # the scatter program: kernels.slab.apply_delta (K-H on a card, the
-        # plain version on the CPU) unless fork() gave this cache another
-        self._apply_fn = None
+        # the scatter program fork() gave this cache; None: `_apply_fn()`'s
+        # default, kernels.slab.apply_delta (K-H on a card, the plain
+        # version on the CPU)
+        self._apply = None
         self._sig = None
         self._seq = None
         self._prev = None
@@ -325,11 +326,11 @@ class DeviceDeltaCache:
         `apply_fn` -- used to hold the kernel against its plain version on
         the same previous problem and bundle.  The two share the resident
         tensors, which neither ever writes (the apply is functional)."""
-        twin = DeviceDeltaCache.__new__(DeviceDeltaCache)
+        twin = type(self).__new__(type(self))
         twin.__dict__.update(self.__dict__)
         twin._host_ids = dict(self._host_ids)
         twin._node_dev = dict(self._node_dev)
-        twin._apply_fn = apply_fn
+        twin._apply = apply_fn
         return twin
 
     def reset(self) -> None:
@@ -347,12 +348,28 @@ class DeviceDeltaCache:
         """The device-resident problem the last apply produced (or None)."""
         return self._prev
 
-    def _to_device(self, arr) -> torch.Tensor:
+    def _to_device(self, arr, name=None) -> torch.Tensor:
+        """Upload one host array to the cache's device.  `name` is the
+        problem field (None for unnamed payloads); the mesh cache overrides
+        this to place each field in its mesh layout."""
         if isinstance(arr, torch.Tensor):
             return arr.to(self.device)
         # a copy: later host mutations never reach the device state, and
         # 0-d scalars stay 0-d
         return torch.tensor(np.asarray(arr), device=self.device)
+
+    def _count_up(self, arr, name=None) -> None:
+        """Per-field upload accounting; the mesh cache overrides it to count
+        the per-shard bytes of node-axis-sharded fields."""
+        TRANSFER_STATS.count_up(np.asarray(arr).nbytes)
+
+    def _apply_fn(self):
+        """The scatter program this cache applies deltas with: the one
+        fork() gave it, else K-H's wrapper; the mesh cache's default is its
+        mesh's (parallel/mesh_slab.py)."""
+        from armada_tpu_torch.kernels.slab import apply_delta
+
+        return self._apply if self._apply is not None else apply_delta
 
     def _to_device_async(self, arr) -> torch.Tensor:
         """A copy of a host array on the device that does not wait for the
@@ -372,8 +389,8 @@ class DeviceDeltaCache:
             if name in _NODE_FIELDS and self._host_ids.get(name) is arr and name in self._node_dev:
                 out.append(self._node_dev[name])
             else:
-                TRANSFER_STATS.count_up(np.asarray(arr).nbytes)
-                dev = self._to_device(arr)
+                self._count_up(arr, name)
+                dev = self._to_device(arr, name)
                 if name in _NODE_FIELDS:
                     self._node_dev[name] = dev
                 out.append(dev)
@@ -389,19 +406,17 @@ class DeviceDeltaCache:
         k = _pad_bucket(idx.shape[0])
         pad = np.full((k,), sentinel, np.int32)
         pad[: idx.shape[0]] = idx
-        TRANSFER_STATS.count_up(pad.nbytes)
+        self._count_up(pad)
         rows = {}
         for n in names:
             arr = _pad_rows(np.asarray(cols[n]), k)
-            TRANSFER_STATS.count_up(arr.nbytes)
+            self._count_up(arr)
             rows[n] = self._to_device_async(arr)
         return self._to_device_async(pad), rows
 
     def _scatter(self, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, gq_args, ev_base,
                  splice):
-        from armada_tpu_torch.kernels.slab import apply_delta
-
-        apply_fn = self._apply_fn or apply_delta
+        apply_fn = self._apply_fn()
         G = self._prev.g_req.shape[0]
         RJ = self._prev.run_req.shape[0]
         sg_i, sg_rows = self._upload_rows(sg_idx, G, sg_cols, _SG_FIELDS)
@@ -451,8 +466,8 @@ class DeviceDeltaCache:
         for name, arr in bundle.fulls.items():
             if self._host_ids.get(name) is arr:
                 continue  # unchanged object, the device copy is current
-            TRANSFER_STATS.count_up(np.asarray(arr).nbytes)
-            dev = self._to_device(arr)
+            self._count_up(arr, name)
+            dev = self._to_device(arr, name)
             if name in _NODE_FIELDS:
                 # keep the reusable device copy current, else a later full
                 # upload would resurrect a stale buffer
@@ -470,7 +485,7 @@ class DeviceDeltaCache:
             ins_val = np.zeros((kq,), np.int32)
             ins_val[: ins.shape[0]] = vals
             for arr in (rem_pos, ins_pos, ins_val):
-                TRANSFER_STATS.count_up(arr.nbytes)
+                self._count_up(arr)
             gq_args = tuple(self._to_device(a) for a in (rem_pos, ins_pos, ins_val))
             self.splice_applies += 1
         else:

@@ -19,8 +19,10 @@ side set so the away rounds never need a full backlog scan.
 
 The port's copy of the JAX package's scheduler/incremental_algo.py.  The
 feed takes the device its caches live on (the card unless the caller
-passes device="cpu").  Not ported yet: the serving mesh's sharded cache
-and the watchdog's reset hook (ROADMAP items 8 and 10).
+passes device="cpu").  While the mesh serving plane is armed
+(parallel/serving.py) every pool's cache is a node-axis-sharded
+MeshDeviceDeltaCache, and the feed's reset hook (core/watchdog.py)
+replaces them all on every ladder transition.
 """
 
 from __future__ import annotations
@@ -87,12 +89,38 @@ class IncrementalProblemFeed:
         for p in config.pools:
             self.builders[p.name] = IncrementalBuilder(config, p.name)
             self.devcaches[p.name] = self.new_device_cache()
+        # A backend-shaped transition (a mesh ladder rung) must drop every
+        # device-resident cache this feed owns.  Held weakly: a closed
+        # feed is garbage, not a leak in the hook registry.
+        from armada_tpu_torch.core.watchdog import add_reset_hook
+
+        add_reset_hook(self.reset_device_state)
 
     def new_device_cache(self) -> DeviceDeltaCache:
-        """The feed's device-cache factory: one DeviceDeltaCache on the
-        feed's device, consulted at every cache (re)build -- feed init,
-        resync, late pool discovery."""
+        """The feed's device-cache factory, on the feed's device: a
+        node-axis-sharded mesh cache while the mesh serving plane is armed,
+        else a DeviceDeltaCache.  Consulted at every cache (re)build -- feed
+        init, resync, late pool discovery and the reset hook -- so a ladder
+        step re-shards through cache replacement."""
+        from armada_tpu_torch.parallel.serving import mesh_serving
+
+        if mesh_serving().enabled():
+            from armada_tpu_torch.parallel.mesh_slab import MeshDeviceDeltaCache
+
+            return MeshDeviceDeltaCache(device=self.device)
         return DeviceDeltaCache(device=self.device)
+
+    def reset_device_state(self) -> None:
+        """Drop device-resident problem state after a mesh transition:
+        REPLACE each pool's cache (never mutate the live object: a round
+        mid-apply keeps the old one, which stays consistent and becomes
+        garbage) and invalidate the builders' prefetch bookkeeping so rows
+        already shipped re-enter the next bundle.  Host tables are
+        untouched."""
+        for pool in list(self.devcaches):
+            self.devcaches[pool] = self.new_device_cache()
+        for b in self.builders.values():
+            b.invalidate_prefetch()
 
     def attach(self, jobdb) -> None:
         self._jobdb = jobdb

@@ -32,7 +32,15 @@ problems, solo and stacked, before the main path.  Last, the simulator
 path: Simulator.run on the card, a small world with gangs and preemption
 through the kernels and through the plain versions, and a two-pool world
 of 10,000 nodes and 100,000 jobs uncached and cached, whose traces must be
-equal.
+equal.  The mesh path (the node-axis mesh on one card): K-K, the round
+whose placement loop runs as a thread-block cluster over 2, 4, 8 and 16
+node shards, on the main problem equal to K-B and timed beside it, on a
+tie-heavy world and every loop shape against the plain version; the steady
+cycle through MeshDeviceDeltaCache at 8 shards beside the single-card
+cycle, decision for decision (K-H under the mesh cache, the counterpart of
+K-L); and the main world at commit_k and batch_k 32 (the wide
+instantiations) and the round's water-fill at Q that are not multiples of
+32.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
@@ -88,6 +96,9 @@ SOURCES = {
                         "armada_tpu/models/fair_scheduler.py:515"),
     "round_batch_k": ("armada_tpu_torch/csrc/round.cu",
                       "armada_tpu/models/fair_scheduler.py:1081"),
+    "round_sharded": ("armada_tpu_torch/csrc/round_cluster.cu",
+                      "armada_tpu/parallel/mesh.py:253"),
+    "slab_sharded": ("armada_tpu_torch/csrc/slab.cu", "armada_tpu/parallel/mesh_slab.py:49"),
 }
 # The incremental path: the steady-state cycle over the main path's world
 # (bench.py's _e2e_bench shape): one warm cycle (full upload), then steady
@@ -2102,6 +2113,352 @@ def simulator_path(dev) -> dict:
     return report
 
 
+# --- the mesh path: the node-axis mesh on one card (K-K, K-L) -------------------
+
+# K-K's cluster sizes on the main problem (16 where the card launches it),
+# and the serving mesh of the steady cycle
+MESH_SHARDS = (2, 4, 8, 16)
+MESH_SERVE = 8
+# small worlds every loop shape of K-K is held on, at MESH_SERVE shards
+MESH_BURST = dict(num_nodes=2_048, num_gangs=8_000, num_queues=64, num_runs=0,
+                  global_burst=400, perq_burst=400, seed=3)
+MESH_GANGS = dict(num_nodes=2_048, num_gangs=8_000, num_queues=64, num_runs=1_000,
+                  global_burst=400, max_gang_cardinality=8, seed=0)
+MESH_HETERO = dict(num_nodes=2_048, num_gangs=8_000, num_queues=32, num_runs=500,
+                   global_burst=400, num_node_types=8, type_sensitive_frac=0.3,
+                   max_gang_cardinality=4, seed=1)
+MESH_EVICT = dict(num_nodes=2_048, num_jobs=20_000, num_queues=32, num_runs=4_000, seed=2,
+                  shape_bucket=1_024)
+# the widths above the narrow instantiations' tables (commit_k, batch_k), and
+# one whose [E x E] tables exceed the card's memory
+WIDE_K = 32
+WIDE_BEYOND = 1 << 20
+# the round's own water-fill at Q that are not multiples of 32
+WATERFILL_Q = tuple(q for q in range(25, 64) if q != 32)
+
+
+def _mesh(dev, shards: int):
+    from armada_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(dev, node_shards=shards)
+
+
+def check_sharded(name: str, problem, meta: dict, dev, shards, **statics) -> dict:
+    """K-K at each shard count against the plain version on the card, every
+    RoundResult field (kernel_iters included), and K-B against it too."""
+    import torch
+
+    from armada_tpu_torch.kernels.round import schedule_round
+    from armada_tpu_torch.models.fair_scheduler import round_statics, schedule_round_plain
+    from armada_tpu_torch.models.state import problem_from_numpy
+
+    dp = problem if isinstance(problem.g_req, torch.Tensor) else problem_from_numpy(problem, dev)
+    kw = dict(meta, **round_statics(dp, **statics))
+    p = schedule_round_plain(dp, **kw)
+    max_err(schedule_round(dp, **kw), p)
+    for s in shards:
+        k = schedule_round(dp, mesh=_mesh(dev, s), **kw)
+        torch.cuda.synchronize()
+        max_err(k, p)
+    info = dict(iterations=int(p.iterations), kernel_iters=int(p.kernel_iters),
+                scheduled=int(p.scheduled_count), evicted=int(p.run_evicted.sum()))
+    shape = " ".join(f"{a}={b}" for a, b in statics.items())
+    log(f"K-K [{name}{' ' + shape if shape else ''}] S={list(shards)}: kernel == K-B == plain "
+        f"{info}")
+    return info
+
+
+def check_mesh_kernels(dev) -> dict:
+    """K-K on small problems, every loop shape, at MESH_SERVE shards (and
+    every cluster size on a tie-heavy world: identical nodes, so nearly
+    every node argmin is a tie across every shard boundary), each equal to
+    the plain version; then the wide instantiations (commit_k and batch_k
+    WIDE_K) solo and on a 3-lane stack, and the round's water-fill at Q in
+    WATERFILL_Q, each K-B against the plain version."""
+    from armada_tpu_torch.kernels.round import cluster_capacity, schedule_round
+    from armada_tpu_torch.models.fair_scheduler import round_statics
+    from armada_tpu_torch.models.state import problem_from_numpy
+    from armada_tpu_torch.models.synthetic import synthetic_problem
+
+    out = {}
+    shards = tuple(s for s in MESH_SHARDS if s < 16 or cluster_capacity(s) > 0)
+    S = (MESH_SERVE,)
+    bp, bmeta = synthetic_problem(**MESH_BURST)
+    ties = bp._replace(node_total=np.repeat(bp.node_total[:1], bp.node_total.shape[0], 0),
+                       node_type=np.zeros_like(bp.node_type))
+    tdp = problem_from_numpy(ties, dev)
+    out["ties"] = check_sharded("ties", tdp, bmeta, dev, shards)
+    for statics in (dict(commit_k=LOOP_COMMIT_K), dict(batch_k=8), dict(cache_slots=16)):
+        out["ties " + str(statics)] = check_sharded("ties", tdp, bmeta, dev, S, **statics)
+    bdp = problem_from_numpy(bp, dev)
+    for statics in (dict(), dict(commit_k=16), dict(cache_slots=4), dict(unroll=4),
+                    dict(cache_slots=16, commit_k=LOOP_COMMIT_K), dict(batch_k=16)):
+        out["burst " + str(statics)] = check_sharded("burst", bdp, bmeta, dev, S, **statics)
+    gp, gmeta = synthetic_problem(**MESH_GANGS)
+    gdp = problem_from_numpy(gp, dev)
+    out["gangs"] = check_sharded("gangs", gdp, gmeta, dev, shards)
+    out["gangs prefer-large"] = check_sharded("gangs", gdp, gmeta, dev, S, prefer_large=True)
+    hp, hmeta = synthetic_problem(**MESH_HETERO)
+    hdp = problem_from_numpy(hp, dev)
+    for statics in (dict(), dict(commit_k=LOOP_COMMIT_K), dict(batch_k=8), dict(cache_slots=8)):
+        out["bias " + str(statics)] = check_sharded("bias", hdp, hmeta, dev, S, **statics)
+    ep, ectx = world_problem(MESH_EVICT, protected=0.0)
+    edp = problem_from_numpy(ep, dev)
+    out["evict"] = check_sharded("eviction world", edp, round_meta(ectx), dev, S)
+    if out["evict"]["evicted"] == 0:
+        raise AssertionError("the mesh eviction world evicted nothing")
+    # A1: the wide instantiations, solo and stacked
+    for statics in (dict(commit_k=WIDE_K), dict(batch_k=WIDE_K)):
+        out["wide " + str(statics)] = check_round("burst", bdp, bmeta, dev, **statics)
+        out["wide bias " + str(statics)] = check_round("bias", hdp, hmeta, dev, **statics)
+    lp, lmeta = synthetic_problem(**LOOP_LANES)
+    lanes = _lanes_of(problem_from_numpy(lp, dev), 3)
+    for statics in (dict(commit_k=WIDE_K), dict(batch_k=WIDE_K)):
+        out["wide stacked " + str(statics)] = _stacked_check("loop lanes (TR > 1)", lanes,
+                                                             lmeta, dev, **statics)
+    # a width whose tables exceed the card's memory raises with the bytes it
+    # needs (the wrapper does not clamp to Q; round_statics does)
+    kw = dict(bmeta, **round_statics(bdp))
+    kw["commit_k"] = WIDE_BEYOND
+    try:
+        schedule_round(bdp, **kw)
+    except RuntimeError as e:
+        if f"commit_k={WIDE_BEYOND}" not in str(e) or "bytes of scratch" not in str(e):
+            raise
+        log(f"K-B round [burst commit_k={WIDE_BEYOND}]: raises: {e}")
+        out["wide beyond the card"] = str(e)
+    else:
+        raise AssertionError(f"commit_k={WIDE_BEYOND} launched; its tables exceed the card")
+    # A2: the round's own water-fill at Q not a multiple of 32
+    for q in WATERFILL_Q:
+        qp, qmeta = synthetic_problem(num_nodes=512, num_gangs=4_000, num_queues=q,
+                                      num_runs=300, global_burst=300, seed=q)
+        if int(qp.q_weight.shape[0]) != q:
+            raise AssertionError(f"the water-fill problem has Q={qp.q_weight.shape[0]}, not {q}")
+        out[f"waterfill Q={q}"] = check_round(f"water-fill Q={q}", qp, qmeta, dev)
+    return out
+
+
+def mesh_main(dev, main: dict, plain_round_ms: float) -> dict:
+    """K-K and the wide instantiations on the main path's own problem (no
+    second build).  K-K at every cluster size equal to K-B in every field
+    (K-B equal to its plain version on the main path), timed in turns with
+    K-B (K-B, 2, 4, 8, 16, 16, 8, 4, 2, K-B; CUDA events).  Then
+    run_round_on_device at ARMADA_COMMIT_K and ARMADA_BATCH_K = WIDE_K, each
+    deciding as the K = 1 round did, its round equal to the plain version's
+    in every field (kernel_iters included) and timed."""
+    import torch
+
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch.kernels.round import cluster_capacity, schedule_round
+    from armada_tpu_torch.models import run_round_on_device
+    from armada_tpu_torch.models.fair_scheduler import round_statics, schedule_round_plain
+
+    config, problem, ctx, dp = main["config"], main["problem"], main["ctx"], main["dp"]
+    meta = round_meta(ctx)
+    kw = dict(meta, **round_statics(dp, cache_slots=0, batch_k=1, commit_k=1))
+    shards = [s for s in MESH_SHARDS if s < 16 or cluster_capacity(s) > 0]
+    report: dict = dict(shards=shards, capacity={s: cluster_capacity(s) for s in MESH_SHARDS})
+    with uncounted():
+        kb = schedule_round(dp, **kw)
+        for s in shards:
+            max_err(schedule_round(dp, mesh=_mesh(dev, s), **kw), kb)
+        log(f"mesh path [main world]: K-K at S={shards} == K-B, every field "
+            f"(cluster capacity {report['capacity']})")
+        ms: dict = {}
+        for s in [1] + shards + shards[::-1] + [1]:
+            mesh = _mesh(dev, s) if s > 1 else None
+            t, _ = cuda_ms(lambda mesh=mesh: schedule_round(dp, mesh=mesh, **kw), reps=3)
+            ms.setdefault(s, []).append(t)
+    iters = int(kb.iterations)
+    report.update(ms=ms, iterations=iters,
+                  us_per_iter={s: float(np.mean(v)) * 1e3 / iters for s, v in ms.items()})
+    log("mesh path [main world]: ms in turns " + ", ".join(
+        f"{'K-B' if s == 1 else f'S={s}'} {v}" for s, v in ms.items()) + f"; {iters} iterations")
+
+    # A1: the main world at WIDE_K
+    k1 = main["outcome"]
+    wide: dict = {}
+    for name, env, statics in (
+            ("commit_k", dict(ARMADA_COMMIT_K=str(WIDE_K)), dict(commit_k=WIDE_K)),
+            ("batch_k", dict(ARMADA_CACHE_SLOTS="0", ARMADA_BATCH_K=str(WIDE_K)),
+             dict(batch_k=WIDE_K))):
+        kernels.reset_launches()
+        res, out = _with_env(env, lambda: run_round_on_device(
+            problem, ctx, config, device=dev, device_problem=dp))
+        torch.cuda.synchronize()
+        if _outcome_view(out) != _outcome_view(k1):
+            raise AssertionError(f"{name}={WIDE_K}: the main world decides differently from K=1")
+        with uncounted():
+            kww = dict(meta, **round_statics(dp, cache_slots=0, **statics))
+            t, kr = cuda_ms(lambda: schedule_round(dp, **kww), reps=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pr = schedule_round_plain(dp, **kww)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            max_err(kr, pr)
+            max_err(res, pr)
+        wide[name] = dict(ms=t, plain_ms=pms, kernel_iters=int(kr.kernel_iters),
+                          iterations=int(kr.iterations), us_per_trip=t * 1e3 / int(kr.kernel_iters))
+        log(f"mesh path [A1, main world]: {name}={WIDE_K} decides as K=1; K-B {t:.2f} ms in "
+            f"{int(kr.kernel_iters)} trips ({t * 1e3 / int(kr.kernel_iters):.1f} us a trip), "
+            f"equal to its plain version ({pms:.0f} ms), kernel_iters included")
+    # the narrow instantiations' widest form (shared-memory tables, 16)
+    # beside the wide ones' narrowest (scratch, 17), in turns
+    with uncounted():
+        for name in ("commit_k", "batch_k"):
+            turns: dict = {}
+            for k in (16, 17, 17, 16):
+                kwk = dict(meta, **round_statics(dp, cache_slots=0, **{name: k}))
+                t, r = cuda_ms(lambda kwk=kwk: schedule_round(dp, **kwk), reps=2)
+                turns.setdefault(k, []).append(dict(ms=t, trips=int(r.kernel_iters),
+                                                    us_per_trip=t * 1e3 / int(r.kernel_iters)))
+            wide[f"{name} 16 vs 17"] = turns
+            log(f"mesh path [A1, main world]: {name} 16 (shared-memory tables) vs 17 (scratch) "
+                f"in turns: {turns}")
+    report["wide"] = wide
+    N, R = (int(x) for x in dp.node_total.shape)
+    live_q = int((dp.q_len > 0).sum())
+    per_iter = 2 * N * R * 4 + live_q * 16 * 13
+    bms, by = bound_ms(tensor_bytes(*dp) + tensor_bytes(*kb) + iters * per_iter,
+                       iters * 2 * N * R * 6)
+    report.update(bound_ms=bms, bound_by=by, plain_ms=plain_round_ms)
+    return report
+
+
+def mesh_cycle_path(dev, world) -> dict:
+    """The steady cycle through MeshDeviceDeltaCache at MESH_SERVE shards,
+    beside the single-card cycle on the same world, cycle by cycle: two
+    IncrementalBuilders fed the same specs, each cycle's round through
+    run_round_on_device (verification armed) -- with the serving mesh armed
+    for the mesh arm (K-H under the mesh cache, K-K) and disarmed for the
+    single arm (K-H, K-B).  Every cycle must decide the same in both; the
+    mesh arm's resident problem must equal bundle.materialize(), and its
+    K-H equal the plain apply."""
+    import torch
+
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch.core.types import RunningJob
+    from armada_tpu_torch.kernels.slab import apply_delta
+    from armada_tpu_torch.models import run_round_on_device
+    from armada_tpu_torch.models import verify as V
+    from armada_tpu_torch.models.incremental import IncrementalBuilder
+    from armada_tpu_torch.models.slab import DeviceDeltaCache, apply_delta_plain
+    from armada_tpu_torch.parallel.mesh_slab import MeshDeviceDeltaCache
+    from armada_tpu_torch.parallel.serving import mesh_serving
+
+    config, nodes, queues, specs, running, spec_factory = world["world"]
+    ms = mesh_serving()
+    arms = {}
+    for arm in ("single", "mesh"):
+        ms.configure(MESH_SERVE if arm == "mesh" else 0)
+        b = IncrementalBuilder(config, "default", queues)
+        b.set_nodes(nodes)
+        b.submit_many(specs)
+        b.lease_many(running)
+        cache = (MeshDeviceDeltaCache(device=dev) if arm == "mesh"
+                 else DeviceDeltaCache(device=dev))
+        arms[arm] = dict(builder=b, cache=cache, spec_of={sp.id: sp for sp in specs})
+    V.reset_verify_state()
+    vtok = V.arm_default(True)
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    cycles = []
+    replay = None
+    try:
+        for c in range(1 + STEADY_CYCLES):
+            fresh = spec_factory(BURST, 100.0 + 100.0 * c) if c else []
+            outs = {}
+            for arm in ("single", "mesh"):
+                a = arms[arm]
+                ms.configure(MESH_SERVE if arm == "mesh" else 0)
+                if fresh:
+                    for sp in fresh:
+                        a["spec_of"][sp.id] = sp
+                    a["builder"].submit_many(fresh)
+                bundle, ctx = a["builder"].assemble_delta()
+                with uncounted():
+                    truth = bundle.materialize()
+                    twin = PlainTwin(a["cache"]) if a["cache"].resident is not None else None
+                if arm == "mesh":
+                    kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dp = a["cache"].apply(bundle)
+                result, outcome = run_round_on_device(bundle.stats_view(), ctx, config,
+                                                      device=dev, device_problem=dp)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if arm == "mesh":
+                    for k, v in kernels.LAUNCHES.items():
+                        launches[k] += v
+                    with uncounted():
+                        problems_equal(dp, truth, f"mesh cycle {c}: resident vs materialize()")
+                        if a["cache"].last_apply == "scatter":
+                            problems_equal(dp, twin.twin.apply(bundle),
+                                           f"mesh cycle {c}: K-H under the mesh cache vs plain")
+                            replay = (twin.args, a["cache"].mesh)
+                        if a["cache"].mesh_devices != MESH_SERVE:
+                            raise AssertionError(f"mesh cycle {c}: the cache holds "
+                                                 f"{a['cache'].mesh_devices} shards")
+                outs[arm] = (outcome, wall, a["cache"].last_apply)
+                a["builder"].remove_many(outcome.scheduled.keys())
+                a["builder"].lease_many([RunningJob(job=a["spec_of"].pop(j), node_id=n)
+                                         for j, n in outcome.scheduled.items()
+                                         if j in a["spec_of"]])
+                for jid in outcome.preempted:
+                    a["builder"].unlease(jid)
+            (o1, w1, ap1), (o2, w2, ap2) = outs["single"], outs["mesh"]
+            if _outcome_view(o1) != _outcome_view(o2):
+                raise AssertionError(f"mesh cycle {c}: the mesh decides differently from the "
+                                     "single card")
+            cycles.append(dict(cycle=c, single_s=w1, mesh_s=w2, single_apply=ap1,
+                               mesh_apply=ap2, scheduled=len(o2.scheduled),
+                               preempted=len(o2.preempted), failed=len(o2.failed)))
+            log(f"mesh cycle {c}: {ap2} apply; single card {w1:.3f} s, mesh of {MESH_SERVE} "
+                f"{w2:.3f} s (apply + run_round_on_device); same decisions "
+                f"(scheduled {len(o2.scheduled)}, preempted {len(o2.preempted)}, failed "
+                f"{len(o2.failed)})")
+        if V.verify_state().failures or V.verify_state().rounds < 2 * (1 + STEADY_CYCLES):
+            raise AssertionError(f"verification: {V.verify_state().snapshot()}")
+    finally:
+        V.disarm_default(vtok)
+        ms.configure(0)
+    log(f"mesh path launches (the mesh arm's cycles): {launches}")
+    for k in ("round_sharded", "slab_sharded", "fair_shares", "compact", "verify"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the mesh path")
+    if launches["round"] or launches["slab"]:
+        raise AssertionError(f"the mesh arm launched single-card kernels: {launches}")
+    if replay is None:
+        raise AssertionError("the mesh cycle never scattered")
+    (a, akw), mesh = replay
+    with uncounted():
+        kl_ms, kl = cuda_ms(lambda: apply_delta(*a, **akw, mesh=mesh), reps=10)
+        kl_plain_ms, kl_plain = cuda_ms(lambda: apply_delta_plain(*a, **akw), reps=3)
+        problems_equal(kl, kl_plain, "K-H under the mesh cache: replay vs plain")
+    kl_b = bound_ms(slab_bytes(replay[0]), 0)
+    return dict(cycles=cycles, launches=launches, kl_ms=kl_ms, kl_plain_ms=kl_plain_ms,
+                kl_bound=kl_b)
+
+
+def mesh_rows(main_mesh: dict, cyc: dict) -> list:
+    rows = []
+    src, rep = SOURCES["round_sharded"]
+    rows.append(dict(
+        name="round_sharded", route="cuda", source=src, replaces=rep,
+        launches=cyc["launches"]["round_sharded"], max_abs_err=0.0, equal=True,
+        ms=float(np.mean(main_mesh["ms"][MESH_SERVE])), plain_ms=main_mesh["plain_ms"],
+        bound_ms=main_mesh["bound_ms"], bound_by=main_mesh["bound_by"], library_ms=None))
+    src, rep = SOURCES["slab_sharded"]
+    bms, by = cyc["kl_bound"]
+    rows.append(dict(
+        name="slab_sharded", route="cuda", source=src, replaces=rep,
+        launches=cyc["launches"]["slab_sharded"], max_abs_err=0.0, equal=True, ms=cyc["kl_ms"],
+        plain_ms=cyc["kl_plain_ms"], bound_ms=bms, bound_by=by, library_ms=None))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2120,11 +2477,23 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"kernels built and loaded in {build_s:.1f} s (nvcc {kbuild.BUILD_INFO.get('seconds', 0.0):.1f} s)")
     report: dict = dict(card=smi, build_s=build_s, build_log=kbuild.BUILD_INFO.get("log", ""))
+    phase_s: dict = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f} s")
 
     report["fair_shares"] = check_fair_shares(dev)
     check_compact(dev)
     pools_small = check_pool_kernels(dev)
+    mark("small pool kernels")
     loop_small = check_loop_kernels(dev)
+    mark("small loop kernels")
+    mesh_small = check_mesh_kernels(dev)
+    mark("small mesh kernels")
     sp, meta = synthetic_problem(**KB_SYNTH)
     report["round_synthetic"] = check_round("synthetic_problem", sp, meta, dev)
     mp, mctx = world_problem(KB_MARKET)
@@ -2150,6 +2519,7 @@ def main() -> int:
     small_out = run_scheduling_round(sc, pool="default", nodes=sn, queues=sq, queued_jobs=ss,
                                      running=sr, device=dev)
     report["incremental_small"] = incremental_path(dev, dict(world=small), small_out)
+    mark("small rounds and incremental")
 
     t0 = time.perf_counter()
     world = dict(world=synthetic_world(**MAIN_WORLD))
@@ -2159,20 +2529,32 @@ def main() -> int:
     main_outcome = mp_report.pop("outcome")
     main_state = mp_report.pop("state")
     report.update(mp_report)
+    mark("main path")
     loop = loop_shapes_path(dev, main_state)
     report["loop_shapes"] = dict(small=loop_small, **loop["report"])
+    mark("loop-shapes path")
+    mesh_m = mesh_main(dev, main_state, mp_report["stages"]["plain_round_ms"])
+    mark("mesh path, main world")
     del main_state
     inc = incremental_path(dev, world, main_outcome)
     report["incremental"] = inc
+    mark("incremental path")
+    mesh_cyc = mesh_cycle_path(dev, world)
+    report["mesh"] = dict(small=mesh_small, main=mesh_m, cycle=mesh_cyc)
+    mark("mesh path, steady cycle")
     pools = pools_path(dev, world, pools_small)
     report["pools"] = pools
+    mark("pools path")
     report["simulator"] = simulator_path(dev)
+    mark("simulator path")
+    report["phase_s"] = phase_s
     report["total_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['total_s']:.1f} s in all, the kernels' build included")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
-    print(json.dumps({"kernels": mp_report["rows"] + loop["rows"] + inc["rows"] + pools["rows"]}))
+    print(json.dumps({"kernels": mp_report["rows"] + loop["rows"] + inc["rows"] + pools["rows"]
+                      + mesh_rows(mesh_m, mesh_cyc)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -213,3 +213,38 @@ def test_serving_subpackages_import_no_jax():
     )
     out = _run(code)
     assert out.returncode == 0, out.stderr
+
+
+def test_parallel_imports_no_jax():
+    """The node-axis mesh (armada_tpu_torch.parallel) and the reset hooks
+    it fires (armada_tpu_torch.core.watchdog) import without jax or the JAX
+    package, and export the JAX package's names."""
+    from armada_tpu.parallel import __all__ as jax_names
+
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import armada_tpu_torch.parallel as P, armada_tpu_torch.core.watchdog\n"
+        "names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert {'armada_tpu_torch.parallel.mesh', 'armada_tpu_torch.parallel.mesh_slab',\n"
+        "        'armada_tpu_torch.parallel.serving'} <= set(names), names\n"
+        f"assert set(P.__all__) == {set(jax_names)!r}, P.__all__\n" + _FORBIDDEN
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.cuda
+def test_mesh_kernels_match_plain_on_the_card():
+    """K-K -- the round's placement loop as a thread-block cluster -- at every
+    loop shape on small problems and a tie-heavy world, the wide
+    instantiations solo and stacked, and the water-fill at Q in 25..63,
+    against the plain version (chip_smoke.check_mesh_kernels).  Run on a
+    machine with a card:
+    `python -m pytest --noconftest -m cuda tests/test_torch_boundary.py`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke
+
+    report = chip_smoke.check_mesh_kernels(torch.device("cuda", 0))
+    assert report["ties"]["scheduled"] > 0

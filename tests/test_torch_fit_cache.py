@@ -273,15 +273,16 @@ def test_market_pool_with_the_cache_through_the_entry_point(monkeypatch):
 
 def test_kernel_wrapper_refuses_shapes_it_does_not_hold():
     """The round kernel's wrapper names its limits before it touches the
-    card: batch_k above MAX_BATCH_K, and the chain beside the cache,
-    commit_k or prefer-large (round_statics never resolves those)."""
+    card: batch_k above MAX_BATCH_K on the sharded round (the wide chain
+    runs solo and stacked only), and the chain beside the cache, commit_k or
+    prefer-large (round_statics never resolves those)."""
     from armada_tpu_torch.kernels import round as kernel_round
 
     problem, meta = _burst()
     p = problem_from_numpy(problem, "cpu")
     kw = dict(meta, max_iterations=100, prefer_large=False, commit_k=1)
-    with pytest.raises(ValueError, match="MAX_BATCH_K"):
-        kernel_round._launch(p, 0, **kw, batch_k=kernel_round.MAX_BATCH_K + 1)
+    with pytest.raises(ValueError, match="wide"):
+        kernel_round._launch(p, 0, **kw, batch_k=kernel_round.MAX_BATCH_K + 1, shards=2)
     for bad in (dict(cache_slots=4), dict(commit_k=4)):
         with pytest.raises(ValueError, match="batch_k > 1"):
             kernel_round._launch(p, 0, **dict(kw, **bad), batch_k=8)

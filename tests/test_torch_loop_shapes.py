@@ -241,13 +241,15 @@ def test_stacked_round_loop_shapes(case):
 
 
 def test_kernel_refuses_a_commit_k_above_its_maximum():
-    """The CUDA round holds at most MAX_COMMIT_K picks; above it the wrapper
-    raises before it touches the problem (checked here on CPU tensors)."""
+    """The solo and stacked CUDA rounds take any commit_k (above
+    MAX_COMMIT_K in the wide instantiations); the sharded round holds at
+    most MAX_COMMIT_K picks, and above it the wrapper raises before it
+    touches the problem (checked here on CPU tensors)."""
     problem, meta = jax_synthetic(num_nodes=20, num_gangs=60, num_queues=40, num_runs=0)
     p = problem_from_numpy(problem, "cpu")
     statics = round_statics(p, commit_k=kernel_round.MAX_COMMIT_K + 1)
     assert statics["commit_k"] == kernel_round.MAX_COMMIT_K + 1
     with pytest.raises(ValueError, match=str(kernel_round.MAX_COMMIT_K)):
-        kernel_round._launch(p, 0, **meta, **statics)
+        kernel_round._launch(p, 0, **meta, **statics, shards=2)
     # the plain version runs any width
     assert int(schedule_round(p, **meta, **statics, device="cpu").n_slots) > 0
