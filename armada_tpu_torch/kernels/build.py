@@ -130,7 +130,8 @@ def library() -> ctypes.CDLL:
         lib.armada_lanes_copy.restype = ci
         for name in ("armada_slab_args_size", "armada_slab_group_size",
                      "armada_splice_args_size", "armada_verify_args_size",
-                     "armada_explain_args_size", "armada_lanes_desc_size"):
+                     "armada_explain_args_size", "armada_lanes_desc_size",
+                     "armada_lanes_tile_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ci
         _LIB = lib

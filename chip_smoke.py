@@ -18,8 +18,11 @@ FairSchedulingAlgo.schedule over a JobDb and an IncrementalProblemFeed, a
 fill and three steady cycles with ARMADA_POOL_PARALLEL=1 (the seven
 shape-matched pools stacked into one launch: K-E, K-D, K-F, the stacked
 K-I, K-G) and =0, which must decide the same; its kernels are held against
-their plain versions on small windows of lanes before the main path, and
-on a steady cycle's own state.  Right after the main path, the loop-shapes
+their plain versions on small windows of lanes (and K-E and K-G on an
+adversarial table) before the main path, and on a steady cycle's own
+state, where K-E and K-G are also timed in turns with torch.stack and
+t[i].clone() per field, and every K-E and K-G call inside the cycles is
+timed.  Right after the main path, the loop-shapes
 path: the main problem again through run_round_on_device with
 ARMADA_COMMIT_K=8 (the multi-commit extension, K10), which must decide as
 the K=1 round did, and with prefer-large ordering; a 1M-gang problem with
@@ -51,7 +54,9 @@ Needs one CUDA card; without one it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -1465,19 +1470,78 @@ def _stacked_check(name: str, lanes: list, meta: dict, dev, **statics) -> dict:
     return info
 
 
+# The batched copy's adversarial table (K-E and K-G, csrc/lanes.cu): one
+# large field of many tiles with an odd length, a zero-byte field, sources
+# at odd byte offsets (views into one byte buffer), and 150 tiny fields of
+# five dtypes and odd lengths -- 8 lanes, 1,224 descriptors to stack, more
+# than one launch's table holds.
+ADV_LANES = 8
+ADV_TINY = 150
+AdversarialTree = collections.namedtuple(
+    "AdversarialTree", ["big", "empty", "odd8", "odd16"] + [f"t{k}" for k in range(ADV_TINY)])
+
+
+def adversarial_lanes(dev, P: int = ADV_LANES) -> list:
+    import torch
+
+    dtypes = (np.bool_, np.int32, np.int16, np.float64, np.uint8)
+    lanes = []
+    for li in range(P):
+        rng = np.random.default_rng(100 + li)
+        raw = torch.as_tensor(rng.integers(0, 256, 300_017, dtype=np.uint8), device=dev)
+        tiny = []
+        for k in range(ADV_TINY):
+            n, dt = 1 + (k * 37) % 301, dtypes[k % len(dtypes)]
+            tiny.append(torch.as_tensor(rng.integers(0, 2 if dt is np.bool_ else 100, n).astype(dt),
+                                        device=dev))
+        lanes.append(AdversarialTree(
+            torch.as_tensor(rng.standard_normal(1_000_003).astype(np.float32), device=dev),
+            torch.zeros((0, 3), dtype=torch.float64, device=dev),
+            raw[1 + li:100_002 + li],
+            raw[2 + 2 * li:200_004 + 2 * li].view(torch.int16),
+            *tiny,
+        ))
+    return lanes
+
+
+def check_lane_copies(dev) -> dict:
+    """K-E and K-G on the adversarial lanes against torch.stack and
+    t[i].clone() per field, bit for bit, and no output aliasing an input."""
+    from armada_tpu_torch.kernels import lanes as KL
+
+    lanes = adversarial_lanes(dev)
+    st = KL.stack(lanes)
+    problems_equal(st, KL.stack_plain(lanes), "adversarial lanes: K-E vs torch.stack")
+    inputs = {t.data_ptr() for tree in lanes for t in tree if t.numel()}
+    for i in range(len(lanes)):
+        sl = KL.lane_slice(st, i)
+        problems_equal(sl, KL.slice_plain(st, i), f"adversarial lanes: K-G lane {i}")
+        if any(t.numel() and t.data_ptr() in inputs for t in sl):
+            raise AssertionError("adversarial lanes: a K-G output aliases an input")
+    if any(t.numel() and t.data_ptr() in inputs for t in st):
+        raise AssertionError("adversarial lanes: a K-E output aliases an input")
+    _, table = KL.stack_plan(lanes)
+    info = dict(lanes=len(lanes), fields=len(lanes[0]), descriptors=len(table),
+                words=np.bincount(table["wlog"], minlength=5).tolist())
+    log(f"K-E/K-G [adversarial lanes]: kernels == plain, bit for bit {info} (descriptors by "
+        f"word size 1, 2, 4, 8, 16 bytes)")
+    return info
+
+
 def check_pool_kernels(dev) -> dict:
     """The kernels of the pools path against their plain versions on the
-    card, on small windows of lanes with one shape and different data: K-A
-    with a lane axis; then gang lanes (synthetic_problem, three seeds) and
-    eviction lanes (one eviction world, each lane with other queue weights
-    and node and gang masks, so phase B runs in every lane)."""
+    card, on small windows of lanes with one shape and different data: K-E
+    and K-G on the adversarial lanes; K-A with a lane axis; then gang
+    lanes (synthetic_problem, three seeds) and eviction lanes (one eviction
+    world, each lane with other queue weights and node and gang masks, so
+    phase B runs in every lane)."""
     import torch
 
     from armada_tpu_torch.kernels.fair_shares import fair_shares, fair_shares_lanes_plain
     from armada_tpu_torch.models.state import problem_from_numpy
     from armada_tpu_torch.models.synthetic import synthetic_problem
 
-    out = {}
+    out = dict(adversarial=check_lane_copies(dev))
     rng = np.random.default_rng(11)
     for P, Q in ((3, 29), (7, 64), (4, 8193)):
         w = torch.as_tensor(rng.choice([0.0, 0.5, 1.0, 2.0, 3.7], (P, Q)).astype(np.float32),
@@ -1579,6 +1643,26 @@ def _seven_lane_stack(feed, names):
     return found[0]
 
 
+def _replay_turns(kernel, library) -> tuple:
+    """K-E or K-G in turns with its library call, by the replay's method:
+    library, kernel, kernel, library, each `cuda_ms` over 3 calls after a
+    warm-up, with the cudaMalloc calls and collector passes of each turn
+    (its warm-up included).  Returns (the turns, the last kernel result)."""
+    import torch
+
+    turns, out = dict(ms=[], cuda_mallocs=[], gc_passes=[]), None
+    for fn in (library, kernel, kernel, library):
+        m0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        g0 = sum(g["collections"] for g in gc.get_stats())
+        ms, res = cuda_ms(fn, reps=3)
+        turns["ms"].append(ms)
+        turns["cuda_mallocs"].append(torch.cuda.memory_stats().get("num_device_alloc", 0) - m0)
+        turns["gc_passes"].append(sum(g["collections"] for g in gc.get_stats()) - g0)
+        if fn is kernel:
+            out = res
+    return turns, out
+
+
 def _replay_stack(kk: dict, dps, stacked) -> dict:
     """Device times of the cycle's stacked kernels on its own state (CUDA
     events), and of the seven solo K-B rounds they replace."""
@@ -1593,7 +1677,7 @@ def _replay_stack(kk: dict, dps, stacked) -> dict:
     from armada_tpu_torch.models.problem import COMPACT_ECAP, COMPACT_FCAP
 
     with uncounted():
-        ke_ms, st = cuda_ms(lambda: KL.stack(dps), reps=3)
+        ke, st = _replay_turns(lambda: KL.stack(dps), lambda: KL.stack_plain(dps))
         kd_ms, res = cuda_ms(lambda: schedule_round_stacked(stacked, **kk), reps=1)
         kw = dict(kk, max_iterations=resolve_round_statics(dps[0]))
         solo_ms = [cuda_ms(lambda d=d: round_kernel(d, **kw), reps=1)[0] for d in dps]
@@ -1605,11 +1689,108 @@ def _replay_stack(kk: dict, dps, stacked) -> dict:
         vin = V.verify_inputs(stacked, res, kf, 0)
         vargs = (*vin[:18], res.alloc, *vin[19:22], [G] * P)
         ki_ms, ki = cuda_ms(lambda: verify_round_stacked(*vargs), reps=5)
-        kg_ms, _ = cuda_ms(lambda: KL.lane_slice(stacked, P - 1), reps=3)
-    return dict(stack_ms=ke_ms, stacked_round_ms=kd_ms, solo_round_ms=solo_ms,
+        kg, _ = _replay_turns(lambda: KL.lane_slice(stacked, P - 1),
+                              lambda: KL.slice_plain(stacked, P - 1))
+    return dict(stack_ms=(ke["ms"][1] + ke["ms"][2]) / 2, stack_turns=ke,
+                stacked_round_ms=kd_ms, solo_round_ms=solo_ms,
                 solo_round_sum_ms=sum(solo_ms), compact_stacked_ms=kf_ms,
-                verify_stacked_ms=ki_ms, lane_slice_ms=kg_ms,
+                verify_stacked_ms=ki_ms, lane_slice_ms=(kg["ms"][1] + kg["ms"][2]) / 2,
+                lane_slice_turns=kg,
                 iterations=[int(x) for x in res.iterations], state=(st, res, kf, ki, vargs))
+
+
+class lane_call_times:
+    """Times every K-E and K-G call made inside it (the wrappers in
+    kernels/lanes.py, which the path imports at each call): the host's
+    milliseconds around the call -- checks, the arena's allocation, the
+    table, the enqueue -- and the stream's between CUDA events recorded
+    around it, with the caching allocator's cudaMalloc calls and retries
+    (a retry frees the cached blocks first) and the Python collector's
+    passes inside the call, each with its generation and milliseconds
+    (gc.callbacks).  Beside each call its library equivalent (torch.stack /
+    t[i].clone() per field, the plain versions, which launch no kernel of
+    the port) runs on the same inputs and is timed the same way: before
+    the call on even calls, after it on odd ones; its result is dropped.
+    `summary()`, after a synchronize, gives count, sums and largest."""
+
+    NAMES = ("stack", "lane_slice")
+
+    def __init__(self):
+        self.calls = {n: [] for n in self.NAMES}
+        self.gc_marks: list = []
+
+    def _on_gc(self, phase, info):
+        self.gc_marks.append((phase, info["generation"], time.perf_counter()))
+
+    def _once(self, fn, a, kw):
+        import torch
+
+        g0 = len(self.gc_marks)
+        m0 = torch.cuda.memory_stats()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        host_ms = (time.perf_counter() - t) * 1e3
+        e1.record()
+        m1 = torch.cuda.memory_stats()
+        marks = self.gc_marks[g0:]
+        passes = [gen for phase, gen, _ in marks if phase == "start"]
+        gc_ms = 1e3 * (sum(t for phase, _, t in marks if phase == "stop")
+                       - sum(t for phase, _, t in marks if phase == "start"))
+        return out, dict(host_ms=host_ms, events=(e0, e1), gc_passes=passes, gc_ms=gc_ms, **{
+            n: m1.get(k, 0) - m0.get(k, 0)
+            for n, k in (("cuda_mallocs", "num_device_alloc"), ("alloc_retries", "num_alloc_retries"))})
+
+    def __enter__(self):
+        from armada_tpu_torch.kernels import lanes as KL
+
+        self.saved = {n: getattr(KL, n) for n in self.NAMES}
+        plain = dict(stack=KL.stack_plain, lane_slice=KL.slice_plain)
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                library_first = len(self.calls[name]) % 2 == 0
+                if library_first:
+                    lib = self._once(plain[name], a, kw)[1]
+                out, rec = self._once(fn, a, kw)
+                if not library_first:
+                    lib = self._once(plain[name], a, kw)[1]
+                self.calls[name].append((rec, lib))
+                return out
+            return call
+
+        for name, fn in self.saved.items():
+            setattr(KL, name, timed(name, fn))
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        from armada_tpu_torch.kernels import lanes as KL
+
+        gc.callbacks.remove(self._on_gc)
+        for name, fn in self.saved.items():
+            setattr(KL, name, fn)
+        return False
+
+    @staticmethod
+    def _sum(recs: list) -> dict:
+        stream = [r["events"][0].elapsed_time(r["events"][1]) for r in recs]
+        gens = [g for r in recs for g in r["gc_passes"]]
+        return dict(host_ms_sum=sum(r["host_ms"] for r in recs),
+                    host_ms_max=max((r["host_ms"] for r in recs), default=0.0),
+                    stream_ms=stream, stream_ms_max=max(stream, default=0.0),
+                    cuda_mallocs=sum(r["cuda_mallocs"] for r in recs),
+                    alloc_retries=sum(r["alloc_retries"] for r in recs),
+                    gc_passes=len(gens), gc_generations=[gens.count(g) for g in range(3)],
+                    gc_ms=sum(r["gc_ms"] for r in recs),
+                    host_ms_without_gc_max=max((r["host_ms"] - r["gc_ms"] for r in recs),
+                                               default=0.0))
+
+    def summary(self) -> dict:
+        return {name: dict(calls=len(calls), kernel=self._sum([c[0] for c in calls]),
+                           library=self._sum([c[1] for c in calls]))
+                for name, calls in self.calls.items()}
 
 
 def _pool_arm(dev, world: dict, fresh_by_cycle: list, parallel: bool) -> dict:
@@ -1672,7 +1853,8 @@ def _pool_arm(dev, world: dict, fresh_by_cycle: list, parallel: bool) -> dict:
             host.update(apply_s=0.0, overlay_s=0.0)
             torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
-            res = algo.schedule(txn, executors, POOL_NOW_NS)
+            with lane_call_times() as lane_calls:
+                res = algo.schedule(txn, executors, POOL_NOW_NS)
             torch.cuda.synchronize(dev)
             sched_s = time.perf_counter() - t1
             t2 = time.perf_counter()
@@ -1687,6 +1869,7 @@ def _pool_arm(dev, world: dict, fresh_by_cycle: list, parallel: bool) -> dict:
                 overlap_ratio=snap["last_overlap_ratio"],
                 pool_round_s={ps.pool: ps.round_s for ps in res.pools},
                 explained=sum(ps.outcome.explain is not None for ps in res.pools),
+                lane_calls=lane_calls.summary(),
             )
             decisions.append((
                 [(job.id, run.id, run.node_id) for job, run in res.scheduled],
@@ -1713,7 +1896,24 @@ def _pool_arm(dev, world: dict, fresh_by_cycle: list, parallel: bool) -> dict:
                     + " ".join(f"{x:.2f}" for x in cyc["solo_round_ms"])
                     + f"), K-E {cyc['stack_ms']:.3f} ms, K-F {cyc['compact_stacked_ms']:.4f} ms, "
                     f"K-G {cyc['lane_slice_ms']:.3f} ms, K-I stacked "
-                    f"{cyc['verify_stacked_ms']:.4f} ms; lane iterations {cyc['iterations']}")
+                    f"{cyc['verify_stacked_ms']:.4f} ms; lane iterations {cyc['iterations']}; "
+                    f"replayed in turns (library, kernel, kernel, library; 3 calls each) "
+                    + ", ".join(
+                        f"{k} " + " ".join(f"{v:.3f}" for v in t["ms"]) + " ms (cudaMalloc "
+                        + " ".join(map(str, t["cuda_mallocs"])) + ", collector passes "
+                        + " ".join(map(str, t["gc_passes"])) + ")"
+                        for k, t in (("K-E", cyc["stack_turns"]), ("K-G", cyc["lane_slice_turns"]))))
+                for n, d in cyc["lane_calls"].items():
+                    log(f"pools cycle {c} [{arm}] {n} calls inside the cycle: {d['calls']}; "
+                        + "; ".join(
+                            f"{who} host {x['host_ms_sum']:.3f} ms in all, largest "
+                            f"{x['host_ms_max']:.3f} ms ({x['host_ms_without_gc_max']:.3f} ms "
+                            f"without the collector), stream ms "
+                            + " ".join(f"{v:.3f}" for v in x["stream_ms"])
+                            + f", cudaMalloc {x['cuda_mallocs']}, allocator retries "
+                            f"{x['alloc_retries']}, collector passes {x['gc_passes']} (by "
+                            f"generation {x['gc_generations']}) {x['gc_ms']:.3f} ms"
+                            for who, x in (("kernel", d["kernel"]), ("library", d["library"]))))
         launches = dict(kernels.LAUNCHES)
         snap = pool_serving_stats().snapshot()
         padded = {n: dict(N=int(feed.devcache_for(n).resident.node_total.shape[0]),
@@ -1729,6 +1929,179 @@ def _pool_arm(dev, world: dict, fresh_by_cycle: list, parallel: bool) -> dict:
     log(f"pools path [{arm}] launches: {launches}; pool serving {snap}; padded shapes {padded}")
     return dict(arm=arm, load_s=load_s, cycles=cycles, decisions=decisions, launches=launches,
                 serving=snap, padded=padded)
+
+
+LANE_REPS = 20
+L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
+
+
+def launch_ms(fn, mode: str, flush, reps: int = LANE_REPS) -> float:
+    """Median device milliseconds of fn() alone, CUDA events around each
+    call.  mode "cold": `flush` is read before each call, so the L2 holds
+    none of fn's bytes and no dirty lines to write back, then a short spin
+    kernel lets the host enqueue the call before the card reaches it (else
+    a slow host's enqueue lands between the events); "hot": back to back
+    behind one long spin kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    if mode == "hot":
+        torch.cuda._sleep(3_000_000)
+    marks = []
+    for _ in range(reps):
+        if mode == "cold":
+            flush.view(torch.int64).sum()
+            torch.cuda._sleep(400_000)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in marks]))
+
+
+def host_ms(fn, reps: int = LANE_REPS) -> list:
+    """Host milliseconds of single calls of fn (the stream drained before
+    each)."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return out
+
+
+def _one_copy(src, dst, nbytes: int) -> np.ndarray:
+    """A one-descriptor table of the batched copy."""
+    from armada_tpu_torch.kernels import lanes as KL
+
+    table = np.zeros(1, KL.DESC)
+    table["src"], table["dst"], table["bytes"], table["wlog"] = src, dst, nbytes, 4
+    return table
+
+
+def lanes_one_form_library():
+    """csrc/lanes.cu alone, built with -DLANES_CAP_SMALL=1000 so that every
+    table launches the 32 KB block of kernel parameters (the shipped build
+    launches a table of up to 120 rows from a 4 KB block), loaded with
+    ctypes: the yardstick of the small form."""
+    import ctypes
+
+    from armada_tpu_torch.kernels import build as kbuild
+
+    out = kbuild.BUILD_DIR / f"liblanes-one-form-{kbuild._digest()}.so"
+    if not out.exists():
+        done = subprocess.run(
+            [kbuild._nvcc(), *kbuild.FLAGS, "-DLANES_CAP_SMALL=1000", "-shared",
+             "-o", str(out), str(kbuild.SRC_DIR / "lanes.cu")],
+            capture_output=True, text=True, timeout=600)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc of the one-form lanes build failed:\n{done.stdout}{done.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.armada_lanes_copy.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.armada_lanes_copy.restype = ctypes.c_int
+    return lib
+
+
+def lanes_forms(table, flush) -> dict:
+    """K-G's table launched by the shipped build (its 4 KB block) and by
+    the one-form build (32 KB), in turns (shipped, one form, one form,
+    shipped): the launch alone cold and hot (`launch_ms`) and the host's
+    enqueue (`host_ms`), medians."""
+    from armada_tpu_torch.kernels import lanes as KL
+    from armada_tpu_torch.kernels.build import check, stream_handle
+
+    one = lanes_one_form_library()
+
+    def one_form():
+        check(one.armada_lanes_copy(table.ctypes.data, len(table), stream_handle()),
+              "lanes copy kernel (one form)")
+
+    def shipped():
+        KL._copy(table)
+
+    out = {}
+    for key, fn in (("shipped", shipped), ("one_form", one_form), ("one_form", one_form),
+                    ("shipped", shipped)):
+        out.setdefault(key, []).append(dict(
+            cold_ms=launch_ms(fn, "cold", flush), hot_ms=launch_ms(fn, "hot", flush),
+            host_ms=float(np.median(host_ms(fn)))))
+    log(f"lane_slice: K-G's {len(table)}-row table from the shipped build's 4 KB parameter "
+        f"block against the one-form build's 32 KB, in turns, ms: "
+        + "; ".join(f"{k} cold {x['cold_ms']:.4f} hot {x['hot_ms']:.4f} host {x['host_ms']:.4f}"
+                    for k in ("shipped", "one_form") for x in out[k]))
+    return out
+
+
+def lanes_in_turns(dps, stacked, ke_bound_ms: float, kg_bound_ms: float) -> dict:
+    """K-E and K-G on the pools path's own inputs (the seven lanes; lane
+    P - 1 of their stack), in turns with their one-call library equivalents
+    (torch.stack per field, t[i].clone() per field -- also the plain
+    versions): library, kernel, kernel, library, each the mean of LANE_REPS
+    calls after a warm-up (CUDA events around the calls, so a host-bound
+    call counts its host time).  Then the launch alone with its table
+    prebuilt, cold and hot (`launch_ms`), against the bound and beside two
+    yardsticks: torch's copy_ of the same bytes as one contiguous buffer,
+    and the kernel on one 16-byte descriptor (the launch's floor); and the
+    host time of single calls, of their plans and of the launch alone."""
+    import torch
+
+    from armada_tpu_torch.kernels import lanes as KL
+
+    P = len(dps)
+    dev = stacked.node_total.device
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    out = {}
+    for name, kernel, library, plan, bound in (
+        ("stack", lambda: KL.stack(dps), lambda: KL.stack_plain(dps),
+         lambda: KL.stack_plan(dps), ke_bound_ms),
+        ("lane_slice", lambda: KL.lane_slice(stacked, P - 1), lambda: KL.slice_plain(stacked, P - 1),
+         lambda: KL.slice_plan(stacked, P - 1), kg_bound_ms),
+    ):
+        lib1 = cuda_ms(library, LANE_REPS)[0]
+        k1 = cuda_ms(kernel, LANE_REPS)[0]
+        k2 = cuda_ms(kernel, LANE_REPS)[0]
+        lib2 = cuda_ms(library, LANE_REPS)[0]
+        call_host = host_ms(kernel)
+        plan_host = host_ms(plan)
+        target, table = plan()  # `target`: the arena the table writes into, kept alive
+        launch_host = host_ms(lambda: KL._copy(table))
+        cold = launch_ms(lambda: KL._copy(table), "cold", flush)
+        hot = launch_ms(lambda: KL._copy(table), "hot", flush)
+        form = lanes_forms(table, flush) if name == "lane_slice" else None
+        nbytes = int(table["bytes"].sum())
+        src = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ref = launch_ms(lambda: dst.copy_(src), "cold", flush)
+        floor_table = _one_copy(src.data_ptr(), dst.data_ptr(), 16)
+        floor = launch_ms(lambda: KL._copy(floor_table), "cold", flush)
+        del target, src, dst
+        out[name] = dict(
+            kernel_ms=[k1, k2], library_ms=[lib1, lib2], ms=(k1 + k2) / 2,
+            library_mean_ms=(lib1 + lib2) / 2, host_call_ms_median=float(np.median(call_host)),
+            host_call_ms_max=max(call_host), host_plan_ms_median=float(np.median(plan_host)),
+            host_launch_ms_median=float(np.median(launch_host)), launch_cold_ms=cold,
+            launch_hot_ms=hot, bound_ms=bound, bound_share_cold=bound / cold,
+            bound_share_hot=bound / hot, copy_ref_cold_ms=copy_ref, floor_cold_ms=floor,
+            bytes_copied=nbytes, descriptors=len(table),
+            words=np.bincount(table["wlog"], minlength=5).tolist(), forms=form,
+        )
+        log(f"{name} in turns on the pools path's inputs, ms a call over {LANE_REPS} calls: "
+            f"library {lib1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, library {lib2:.4f}")
+        log(f"{name}: the launch alone, table prebuilt ({len(table)} descriptors, {nbytes:,} "
+            f"bytes): cold {cold:.4f} ms ({100 * bound / cold:.1f} % of the bound {bound:.5f} "
+            f"ms), hot {hot:.4f} ms ({100 * bound / hot:.1f} %); torch copy_ of the same bytes "
+            f"in one buffer, cold, {copy_ref:.4f} ms; the launch's floor (16 bytes), cold, "
+            f"{floor:.4f} ms; host ms of one call: median {np.median(call_host):.4f}, largest "
+            f"{max(call_host):.4f}, of it the plan {np.median(plan_host):.4f} and the launch "
+            f"{np.median(launch_host):.4f}")
+    return out
 
 
 def pools_path(dev, world: dict, small: dict) -> dict:
@@ -1783,7 +2156,7 @@ def pools_path(dev, world: dict, small: dict) -> dict:
 
     with uncounted():
         kw = dict(kk, max_iterations=resolve_round_statics(stacked))
-        ke_plain_ms, ke_plain = cuda_ms(lambda: KL.stack_plain(dps), reps=1)
+        ke_plain = KL.stack_plain(dps)
         err_ke = problems_equal(st, ke_plain, "pools: K-E vs torch.stack")
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
@@ -1806,20 +2179,10 @@ def pools_path(dev, world: dict, small: dict) -> dict:
         err_ki = max_err(ki, ki_plain)
         if int(ki[:, 1].abs().sum()) != 0:
             raise AssertionError(f"pools: the stacked verification flags the cycle: {ki}")
-        kg_plain_ms, kg_plain = cuda_ms(lambda: KL.slice_plain(stacked, P - 1), reps=3)
+        kg_plain = KL.slice_plain(stacked, P - 1)
         err_kg = problems_equal(KL.lane_slice(stacked, P - 1), kg_plain, "pools: K-G vs plain")
-        # one-call library equivalents: torch.stack per field (K-E) and
-        # t[i].clone() per field (K-G) -- exactly the plain versions
-        ke_lib_ms, kg_lib_ms = ke_plain_ms, kg_plain_ms
-        # the copy kernel alone, its descriptors built beforehand, against the
-        # wrapper call (which also builds and checks them on the host)
-        _, ke_descs = KL.stack_plan(list(dps))
-        _, kg_descs = KL.slice_plan(stacked, P - 1)
-        ke_dev_ms, _ = cuda_ms(lambda: KL._copy(ke_descs), reps=10)
-        kg_dev_ms, _ = cuda_ms(lambda: KL._copy(kg_descs), reps=10)
     log(f"pools path: the last steady cycle's K-E, K-D, K-F, K-I stacked and K-G equal their "
-        f"plain versions on the card (plain K-D {kd_plain_ms:.1f} ms); the copy launch alone, "
-        f"descriptors prebuilt: K-E {ke_dev_ms:.4f} ms, K-G {kg_dev_ms:.4f} ms")
+        f"plain versions on the card (plain K-D {kd_plain_ms:.1f} ms)")
 
     # bounds: K-D as K-B's per lane (inputs once, outputs once, per
     # iteration two allocatable rows of every node and the live queues'
@@ -1839,12 +2202,15 @@ def pools_path(dev, world: dict, small: dict) -> dict:
                                  res.slot_nodes, res.slot_counts) + kf.numel() * 4,
                     P * (G + 2 * RJ))
     ki_b = bound_ms(tensor_bytes(*[t for t in vargs[:22]]) + 64 * P, 0)
+    with uncounted():
+        turns = lanes_in_turns(dps, stacked, ke_b[0], kg_b[0])
+    ke, kg = turns["stack"], turns["lane_slice"]
     rows = []
     for name, ms, pms, err, (bms, by), lib in (
         ("round_stacked", cyc["stacked_round_ms"], kd_plain_ms, err_kd, kd_b, None),
-        ("stack", cyc["stack_ms"], ke_plain_ms, err_ke, ke_b, ke_lib_ms),
+        ("stack", ke["ms"], ke["library_mean_ms"], err_ke, ke_b, ke["library_mean_ms"]),
         ("compact_stacked", cyc["compact_stacked_ms"], kf_plain_ms, err_kf, kf_b, None),
-        ("lane_slice", cyc["lane_slice_ms"], kg_plain_ms, err_kg, kg_b, kg_lib_ms),
+        ("lane_slice", kg["ms"], kg["library_mean_ms"], err_kg, kg_b, kg["library_mean_ms"]),
         ("verify_stacked", cyc["verify_stacked_ms"], ki_plain_ms, err_ki, ki_b, None),
     ):
         src, rep = SOURCES[name]
@@ -1856,7 +2222,7 @@ def pools_path(dev, world: dict, small: dict) -> dict:
     for arm in (par, ser):
         arm.pop("decisions")
     return dict(rows=rows, small=small, parallel=par, serial=ser, wall_s=wall_s,
-                N=N, G=G, RJ=RJ, P=P, stack_device_ms=ke_dev_ms, lane_slice_device_ms=kg_dev_ms)
+                N=N, G=G, RJ=RJ, P=P, lanes_in_turns=turns)
 
 
 # --- the simulator path --------------------------------------------------------------

@@ -7,6 +7,9 @@
   launch counters alone.
 - On a machine with a card, the `cuda`-marked test holds every kernel
   against its plain version (it skips here, where there is no card).
+
+It also sets torch's threads in each test process of a parallel run (see
+_WORKERS below).
 """
 
 import ast
@@ -19,6 +22,18 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
+
+# Several test processes (pytest-xdist workers) share the host's cores, and
+# torch gives each one a thread a core by default: their OpenMP pools then
+# contend.  Every worker imports every test file while it collects, so this
+# sets torch's threads in each worker of a parallel run to its share of the
+# cores before any test runs.  Only the port's tests use torch: the JAX
+# package's tests and numpy's threads are left as they are.  A run in one
+# process keeps torch's default, and a run of selected files gets the limit
+# only when this file is among them.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 _FORBIDDEN = (
     "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

@@ -8,7 +8,8 @@ must be equal with no tolerance (f32 bit for bit):
   `schedule_round_stacked`, and against the port's solo round;
 - the stacked compaction (K-F) byte for byte against JAX `_compact_stacked`,
   `begin_decode_stacked`'s outcomes, and the stacked verification buffer;
-- stacking and slicing lanes (K-E, K-G) and the stack's identity memo;
+- stacking and slicing lanes (K-E, K-G) and the stack's identity memo, and
+  the kernels' layout and descriptor table run on the host;
 - `dispatch_pool_rounds` over IncrementalBuilders, per-pool outcomes and
   the stacking counts;
 - `FairSchedulingAlgo.schedule` over a churning multi-pool JobDb, both
@@ -19,8 +20,12 @@ must be equal with no tolerance (f32 bit for bit):
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import dataclasses
 import itertools
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -342,6 +347,192 @@ def test_lanes_round_trip_and_identity_memo():
     assert len(tm._STACK_CACHE) <= tm._STACK_CACHE_CAP
     tm.reset_stack_cache()
     assert not tm._STACK_CACHE
+
+
+# The batched copy's plan (K-E's and K-G's layout and descriptor table) on
+# CPU tensors: the table run on the host with the kernel's own semantics --
+# each tile of each descriptor as a narrow head, the words and a narrow tail
+# (csrc/lanes.cu copy_range), one ctypes.memmove each -- must give the plain
+# versions and the JAX package's stack (`_stack_problems`) and `lane_slice`
+# on the same numpy inputs, bit for bit.
+
+Odd = collections.namedtuple("Odd", "big flags ids mis16 mis8 tail")
+Empty = collections.namedtuple("Empty", "a none b")
+
+
+def _run_table(table) -> None:
+    tile0 = table["tile0"]
+    nbytes = table["bytes"]
+    tiles = -(-nbytes // t_lanes.TILE)
+    assert (nbytes > 0).all() and (tile0 == np.cumsum(tiles) - tiles).all()
+    masks = (1 << table["wlog"].astype(np.int64)) - 1
+    assert (((table["src"] ^ table["dst"]) & masks) == 0).all()
+    for tile in range(int(tiles.sum())):
+        k = int(np.searchsorted(tile0, tile0.dtype.type(tile), side="right")) - 1
+        src, dst, n, first, mask = (int(table[c][k]) for c in ("src", "dst", "bytes", "tile0",
+                                                                "wlog"))
+        mask = (1 << mask) - 1
+        a = (tile - first) * t_lanes.TILE
+        e = min(a + t_lanes.TILE, n)
+        ab, ae = a + (-(dst + a) & mask), e - ((dst + e) & mask)
+        if ae <= ab:
+            ab = ae = e  # shorter than a word: all narrow
+        else:  # the words: aligned on both sides
+            assert ((src + ab) & mask) == 0 and ((dst + ab) & mask) == 0
+            assert ((ae - ab) & mask) == 0
+        for lo, hi in ((a, ab), (ab, ae), (ae, e)):
+            ctypes.memmove(dst + lo, src + lo, hi - lo)
+
+
+def _assert_trees_equal(got, ref, what):
+    assert type(got) is type(ref), what
+    for name in ref._fields:
+        x, y = getattr(got, name), getattr(ref, name)
+        assert x.dtype == y.dtype and x.shape == y.shape and x.is_contiguous(), f"{what}.{name}"
+        assert torch.equal(x, y), f"{what}.{name}"
+
+
+def _assert_equals_numpy(got, ref, what):
+    """`got` (torch) equals `ref` (numpy or JAX arrays) field by field, bit
+    for bit; where JAX, without x64, narrowed a 64-bit input, by value."""
+    for name in got._fields:
+        x, y = getattr(got, name).numpy(), np.asarray(getattr(ref, name))
+        assert x.shape == y.shape, f"{what}.{name}"
+        if x.dtype == y.dtype:
+            assert x.tobytes() == y.tobytes(), f"{what}.{name}"
+        else:
+            assert x.dtype.itemsize == 8 and y.dtype.itemsize == 4, f"{what}.{name}"
+            np.testing.assert_array_equal(x, y, err_msg=f"{what}.{name}")
+
+
+def _jax_stack(case, np_trees):
+    """The JAX package's stack of `np_trees` (`_stack_problems`, the
+    program K-E replaces), with its memo entry dropped again."""
+    key = ("lane plan test", case)
+    try:
+        return jm._stack_problems(key, np_trees)
+    finally:
+        jm._STACK_CACHE.pop(key, None)
+
+
+def _no_alias(out, trees):
+    inputs = {t.data_ptr() for tree in trees for t in tree if t.numel()}
+    assert not any(t.numel() and t.data_ptr() in inputs for t in out)
+
+
+def _odd_lanes(P):
+    """Odd-length bool and int32 fields, a field of several tiles, sources
+    at odd byte offsets (views into one buffer) and a zero-size field."""
+    out = []
+    for li in range(P):
+        rng = np.random.default_rng(40 + li)
+        raw = torch.as_tensor(rng.integers(0, 256, 90_011, dtype=np.uint8))
+        out.append(Odd(torch.as_tensor(rng.standard_normal(20_001).astype(np.float32)),
+                       torch.as_tensor(rng.random(37) < 0.5),
+                       torch.as_tensor(rng.integers(-5, 5, 13, dtype=np.int32)),
+                       raw[2 + 2 * li:40_004 + 2 * li].view(torch.int16),
+                       raw[1 + li:33 + li],
+                       torch.zeros((0, 3), dtype=torch.float64)))
+    return out
+
+
+def _lane_trees(case):
+    """(torch lanes on the CPU, the same lanes as numpy trees, their numpy
+    stack where the test world made one)."""
+    if case in ("problem", "result", "p1"):
+        stacked, lanes, meta = _synthetic_lanes(29, 1 if case == "p1" else 3)
+        if case != "result":
+            return [problem_from_numpy(p, "cpu") for p in lanes], lanes, stacked
+        res = t_fs.schedule_round_stacked(problem_from_numpy(stacked, "cpu"), **meta)
+        trees = [t_lanes.slice_plain(res, i) for i in range(3)]
+    elif case == "odd":
+        trees = _odd_lanes(3)
+    else:
+        trees = [Empty(torch.arange(5, dtype=torch.int32) + li, torch.zeros(0, dtype=torch.bool),
+                       torch.ones((2, 0, 4))) for li in range(2)]
+    return trees, [type(t)(*(x.numpy() for x in t)) for t in trees], None
+
+
+@pytest.mark.parametrize("case", ["problem", "result", "odd", "zero", "p1"])
+def test_lane_plans_run_on_the_host_equal_the_plain_versions(case):
+    trees, np_trees, np_stacked = _lane_trees(case)
+    out, table = t_lanes.stack_plan(trees)
+    _run_table(table)
+    ref = t_lanes.stack_plain(trees)
+    _assert_trees_equal(out, ref, f"{case} stack")
+    jstack = _jax_stack(case, np_trees)
+    _assert_equals_numpy(out, jstack, f"{case} stack vs JAX")
+    if np_stacked is not None:
+        _assert_equals_numpy(out, np_stacked, f"{case} stack vs the test world's stack")
+    _no_alias(out, trees)
+    if case == "odd":  # narrow heads, tails and words are used
+        assert (table["wlog"] < 4).any() and (table["tile0"][1:] - table["tile0"][:-1] > 1).any()
+    for i in range(len(trees)):
+        lane, table = t_lanes.slice_plan(ref, i)
+        _run_table(table)
+        _assert_trees_equal(lane, t_lanes.slice_plain(ref, i), f"{case} slice {i}")
+        _assert_equals_numpy(lane, jax_problem.lane_slice(jstack, i), f"{case} slice {i} vs JAX")
+        _no_alias(lane, [ref])
+
+
+def test_lane_plan_signature_hit_and_refusals():
+    t_lanes._LAYOUTS.clear()
+    lanes = _odd_lanes(3)
+    out, table = t_lanes.stack_plan(lanes)
+    _run_table(table)
+    _assert_trees_equal(out, t_lanes.stack_plain(lanes), "miss")
+    assert len(t_lanes._LAYOUTS) == 1
+    swapped = lanes[::-1]  # the same signature, other data: a hit
+    out, table = t_lanes.stack_plan(swapped)
+    _run_table(table)
+    _assert_trees_equal(out, t_lanes.stack_plain(swapped), "hit")
+    jstack = _jax_stack("hit", [Odd(*(x.numpy() for x in t)) for t in swapped])
+    _assert_equals_numpy(out, jstack, "hit vs JAX")
+    assert len(t_lanes._LAYOUTS) == 1
+    lane, table = t_lanes.slice_plan(out, 0)  # a slice's miss, then its hit on lane 2
+    _run_table(table)
+    lane, table = t_lanes.slice_plan(out, 2)
+    _run_table(table)
+    _assert_equals_numpy(lane, jax_problem.lane_slice(jstack, 2), "slice hit vs JAX")
+    assert len(t_lanes._LAYOUTS) == 2
+    bad = {
+        "shape": lanes[1]._replace(flags=lanes[1].flags[:-1]),
+        "dtype": lanes[1]._replace(ids=lanes[1].ids.to(torch.int64)),
+        "contiguity": lanes[1]._replace(big=torch.zeros(40_002)[::2]),
+        "tensor": lanes[1]._replace(ids=lanes[1].ids.numpy()),
+    }
+    for what, tree in bad.items():
+        with pytest.raises(ValueError, match="ids|flags|big"):
+            t_lanes.stack_plan([lanes[0], tree, lanes[2]])
+    assert len(t_lanes._LAYOUTS) == 2, "a refused call leaves no layout"
+    stacked = t_lanes.stack_plain(lanes)
+    t_lanes.slice_plan(stacked, 2)
+    with pytest.raises(IndexError):
+        t_lanes.slice_plan(stacked, 3)
+    with pytest.raises(ValueError, match="flags"):
+        t_lanes.slice_plan(stacked._replace(flags=stacked.flags.t()), 0)
+    with pytest.raises(ValueError, match="lane axis"):
+        t_lanes.slice_plan(stacked._replace(ids=stacked.ids[:2]), 0)
+
+
+def test_arena_lane_feeds_the_round_as_fresh_buffers():
+    """A lane whose fields are views of one arena (storage offsets not 0)
+    runs the solo round -- what the rollback re-run does with a sliced lane
+    -- as the plain slice does; and no module of the port reads a field's
+    storage, re-points or resizes it."""
+    stacked, _, meta = _synthetic_lanes(29, 3)
+    st = problem_from_numpy(stacked, "cpu")
+    lane, table = t_lanes.slice_plan(st, 1)
+    _run_table(table)
+    got = t_fs.schedule_round(lane, **meta, device="cpu")
+    ref = t_fs.schedule_round(t_lanes.slice_plain(st, 1), **meta, device="cpu")
+    for name in ref._fields:
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    pattern = re.compile(r"storage_offset|untyped_storage|\.storage\(|\.set_\(|\.resize_")
+    root = pathlib.Path(t_lanes.__file__).resolve().parents[1]
+    hits = [f"{p.relative_to(root)}:{k}" for p in sorted(root.rglob("*.py"))
+            for k, line in enumerate(p.read_text().splitlines(), 1) if pattern.search(line)]
+    assert not hits, hits
 
 
 # --- 4. dispatch_pool_rounds ---------------------------------------------------------
