@@ -13,6 +13,10 @@
 #ifndef ARMADA_LAUNCH
 #define ARMADA_LAUNCH(kernel, grid, block, stream) kernel<<<(grid), (block), 0, (stream)>>>
 #endif
+#ifndef ARMADA_LAUNCH_SMEM
+#define ARMADA_LAUNCH_SMEM(kernel, grid, block, smem, stream) \
+    kernel<<<(grid), (block), (smem), (stream)>>>
+#endif
 
 #define ARMADA_INF 3.0e38f
 #define ARMADA_BIGI 2147483647
@@ -29,6 +33,17 @@
     } while (0)
 
 typedef unsigned char u8;
+
+// A block barrier.  ARMADA_BAR_HOOK counts it in a profile build of the
+// round (round.cuh, -DROUND_STEP_PROFILE); elsewhere it is nothing.
+#ifndef ARMADA_BAR_HOOK
+#define ARMADA_BAR_HOOK() ((void)0)
+#endif
+#define ARMADA_SYNC()      \
+    do {                   \
+        ARMADA_BAR_HOOK(); \
+        __syncthreads();   \
+    } while (0)
 
 // (value, index) pair with the argmin order: smaller value first, ties to the
 // lower index (torch.argmin and jnp.argmin both return the first minimum).
@@ -59,7 +74,7 @@ static __device__ ArgMin block_argmin(ArgMin a, ArgMin* sh) {
         a = argmin_pick(a, o);
     }
     if (lane == 0) sh[warp] = a;
-    __syncthreads();
+    ARMADA_SYNC();
     if (warp == 0) {
         const int nw = (blockDim.x + 31) >> 5;
         ArgMin b = lane < nw ? sh[lane] : ArgMin{ARMADA_INF, ARMADA_BIGI, 0};
@@ -72,33 +87,17 @@ static __device__ ArgMin block_argmin(ArgMin a, ArgMin* sh) {
         }
         if (lane == 0) sh[ARMADA_WARPS] = b;
     }
-    __syncthreads();
+    ARMADA_SYNC();
     ArgMin r = sh[ARMADA_WARPS];
-    __syncthreads();
-    return r;
-}
-
-// Block-wide integer sum (exact); every thread gets the result.
-static __device__ long long block_sum_ll(long long x, long long* sh) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) sh[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-        const int nw = (blockDim.x + 31) >> 5;
-        long long y = lane < nw ? sh[lane] : 0;
-        for (int off = 16; off > 0; off >>= 1) y += __shfl_down_sync(0xffffffffu, y, off);
-        if (lane == 0) sh[ARMADA_WARPS] = y;
-    }
-    __syncthreads();
-    long long r = sh[ARMADA_WARPS];
-    __syncthreads();
+    ARMADA_SYNC();
     return r;
 }
 
 // Block-wide OR of a flag; every thread gets the result.
-static __device__ __forceinline__ bool block_any(bool x) { return __syncthreads_or(x ? 1 : 0) != 0; }
+static __device__ __forceinline__ bool block_any(bool x) {
+    ARMADA_BAR_HOOK();
+    return __syncthreads_or(x ? 1 : 0) != 0;
+}
 
 // DRF cost of one allocation row x[R] (ops/fairness.py unweighted_drf_cost):
 // max(0, max_r(total_r > 0 ? x_r / total_r : 0) * mult_r).  max is exact in any

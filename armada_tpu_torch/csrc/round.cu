@@ -243,7 +243,10 @@ static int launch_place_loop(const RoundArgs& a, dim3 grid, int* nodes_w, int* c
     else
         k = het ? place_loop_kernel<false, false, true, false, false, false>
                 : place_loop_kernel<false, false, false, false, false, false>;
-    ARMADA_LAUNCH(k, grid, place_loop_block(a), stream)(a, nodes_w, counts_w);
+    int err = 0;
+    const int hot = hot_bytes(a, (const void*)k, &err);
+    if (err) return err;
+    ARMADA_LAUNCH_SMEM(k, grid, place_loop_block(a), hot, stream)(a, nodes_w, counts_w, hot > 0);
     return (int)cudaGetLastError();
 }
 
@@ -304,13 +307,14 @@ extern "C" int armada_round_main(const RoundArgs* args, int* nodes_w, int* count
     return round_tail(a, max_fix, stream);
 }
 
-// K-K's replicas: the state the placement loop reads before it writes it
-// (the post-eviction allocatable, the queues' allocations, the floating
-// usage, the gang states), copied from replica 0 -- the round's own state --
-// into replicas 1..S-1, each one lane's size further on.
+// The cluster's replicas: the state the placement loop reads before it
+// writes it (the post-eviction allocatable, the queues' allocations, the
+// floating usage, the gang states), copied from replica 0 -- the round's own
+// state, P lanes -- into replicas 1..S-1, each P lanes' size further on.
 __global__ void replicate_kernel(RoundArgs a, int S) {
-    const long long P1NR = (long long)a.P1 * a.N * a.R, QR = (long long)a.Q * a.R;
-    const long long QCR = QR * a.C, total = P1NR + QR + QCR + a.R + a.G;
+    const long long L = a.P;
+    const long long P1NR = L * a.P1 * a.N * a.R, QR = L * a.Q * a.R;
+    const long long QCR = QR * a.C, RR = L * a.R, total = P1NR + QR + QCR + RR + L * a.G;
     GRID_STRIDE(i, total) {
         long long j = i;
         if (j < P1NR) {
@@ -328,27 +332,30 @@ __global__ void replicate_kernel(RoundArgs a, int S) {
             continue;
         }
         j -= QCR;
-        if (j < a.R) {
-            for (int r = 1; r < S; ++r) a.float_used[r * a.R + j] = a.float_used[j];
+        if (j < RR) {
+            for (int r = 1; r < S; ++r) a.float_used[r * RR + j] = a.float_used[j];
             continue;
         }
-        j -= a.R;
-        for (int r = 1; r < S; ++r) a.g_state[(long long)r * a.G + j] = a.g_state[j];
+        j -= RR;
+        for (int r = 1; r < S; ++r) a.g_state[r * L * a.G + j] = a.g_state[j];
     }
 }
 
-// K-K: the round with its placement loop over S node shards, one cluster of
-// S CTAs (round_cluster.cu).  A solo round (P = 1) whose state buffers hold S
-// replicas, each one lane's size apart; replica 0 is the result.
+// The round with its placement loop over S node shards, one cluster of S
+// CTAs a lane (round_cluster.cu): solo (P = 1) or stacked, its state
+// buffers holding S replicas of the P lanes, replica r's P lanes at r x P;
+// replica 0 is the result.
 extern "C" int armada_round_sharded_main(const RoundArgs* args, int S, int* nodes_w, int* counts_w,
                                          int max_fix, cudaStream_t stream) {
     RoundArgs a = *args;
-    if (!args_ok(a) || a.P != 1 || S < 2 || a.N % S != 0 || (a.N / S) % a.CB != 0 ||
+    if (!args_ok(a) || S < 2 || S > MAX_CLUSTER || a.N % S != 0 ||
+        (a.CS > 0 && (a.N / S) % a.CB != 0) ||
         a.commit_k > MAX_COMMIT_K || a.batch_k > MAX_BATCH_K)
         return -1;
     int rc = round_head(a, stream);
     if (rc) return rc;
-    ARMADA_LAUNCH(replicate_kernel, grid_for((long long)a.P1 * a.N * a.R, 1), 256, stream)(a, S);
+    ARMADA_LAUNCH(replicate_kernel, grid_for((long long)a.P * a.P1 * a.N * a.R, 1), 256,
+                  stream)(a, S);
     ARMADA_CHECK();
     rc = launch_place_loop_cluster(a, S, nodes_w, counts_w, stream);
     if (rc) return rc;
@@ -367,3 +374,15 @@ extern "C" void armada_round_wide_need(int commit_k, int batch_k, long long* out
 }
 
 extern "C" int armada_round_args_size(void) { return (int)sizeof(RoundArgs); }
+
+#ifdef ROUND_STEP_PROFILE
+// The step profile of the last placement loop launched in one form: 0 the
+// narrow instantiations, 1 the cluster, 2 the wide ones (PS_SLOTS values).
+extern "C" int armada_round_step_profile(long long* out, int form) {
+    if (form == 1) return round_prof_fetch_cluster(out);
+    if (form == 2) return round_prof_fetch_wide(out);
+    return round_prof_fetch(out);
+}
+
+extern "C" int armada_round_step_profile_slots(void) { return PS_SLOTS; }
+#endif

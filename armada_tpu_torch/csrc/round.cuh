@@ -24,15 +24,39 @@
 // (2 x N x R x 4 bytes: 1.8 MB at N = 57,344, R = 4) plus the static-fit and
 // ban rows; a gang of cardinality c adds up to c argmin passes over N.  At
 // ~1,000 to ~30,000 iterations per round the loop is bound by that sequence of
-// per-iteration passes and block barriers, not by device bandwidth.
+// per-iteration passes and block barriers, not by device bandwidth: on an
+// H100 80GB HBM3 at 700 W, the main world's step takes ~13.5 us at S = 16
+// (the window walk ~5.3, the node pass ~3.9, the commit ~1.6, the cluster
+// exchange ~1.3) against a bound of ~0.6 us (PERF.md §5).
 //
-// The simple design: the prologue, the DRF gate, the eviction move, the key
-// sweep and the unbind are grid-wide kernels (scatter-adds with atomics, exact
-// because every value is integral in resolution units); the placement loop is
-// ONE persistent single-block kernel that keeps the carry scalars in shared
-// memory and alloc[P1, N, R] in global memory (it fits in L2 at the
-// reference scale); phase B's fixed point is a second single-block kernel.
-// No host synchronisation between the launches.
+// The design: the prologue, the DRF gate, the eviction move, the key sweep
+// and the unbind are grid-wide kernels (scatter-adds with atomics, exact
+// because every value is integral in resolution units); the placement loop
+// is ONE persistent kernel a lane -- a thread-block cluster of S CTAs
+// (round_cluster.cu; S from the wrapper's owner, kernels/round.py
+// `choose_cluster_size`), or one block where S = 1 -- that keeps the carry
+// scalars in shared memory and alloc[P1, N, R] in global memory (it fits in
+// L2 at the reference scale); phase B's fixed point is a second single-block
+// kernel.  No host synchronisation between the launches.
+//
+// A step of the loop, as it runs on this card (the reference computes each
+// part as a whole-array program; here the latency of dependent loads and
+// barriers is the cost, so the step keeps both few):
+// - the window walk: a half-warp a live queue (two queues at once), lane w
+//   on window entry head + w; a ballot gives the leading skippable run (the
+//   reference's cumprod); the candidate's lanes then compute its DRF key
+//   and its whole gate (caps, burst, floating capacity) in parallel, so the
+//   gate costs no loads after the pick;
+// - the pick: one reduction of (key, queue) with the step's flags OR'ed;
+// - the node pass: a single needs no division (fits_row decides as
+//   min(member_capacity, 1) >= 1 does), R = 4 rows load as float4, the
+//   key's compat row is a bit mask the walk read; its counts and argmins
+//   meet in one reduction (one cluster exchange under CL), to warp 0 only;
+// - the commit: warp 0, a lane a (entry, level, resource) element and a
+//   resource, on accumulators kept in shared memory for the whole loop (and
+//   the per-queue state, where it fits beside the kernel's own).
+// Four block barriers a single-commit step at S = 1, and one cluster
+// barrier more at S > 1 (20.8 and 22.8 before; PERF.md §5).
 //
 // The multi-commit extension (commit_k = K > 1) runs inside the same block
 // after the head's commit: the K - 1 next queues by order key (successive
@@ -53,7 +77,8 @@
 // (models/fair_scheduler.py:1788, jax.vmap of the solo round).  Every kernel
 // takes the lane from blockIdx.y: the grid-wide kernels launch with grid
 // (x, P), and the two persistent kernels with grid (1, P), one block per
-// pool lane on its own SM.  Lane l's arrays start l x (per-lane element
+// pool lane on its own SM -- the placement loop with grid (S, P), a
+// cluster of S CTAs a lane, when its owner picks S > 1.  Lane l's arrays start l x (per-lane element
 // count) past lane 0's (`lane_of`), so one RoundArgs by value serves every
 // lane and nothing per lane is uploaded.  The lanes never meet and the
 // block's arithmetic is the solo round's, so each lane equals the solo
@@ -64,9 +89,55 @@
 // round is the stacked one at P = 1.
 
 #include <cooperative_groups.h>
+#include <cuda_runtime.h>
 #include <type_traits>
 
+// The step profile (-DROUND_STEP_PROFILE; the shipped build compiles none
+// of it).  Thread 0 of lane 0's rank-0 CTA reads clock64 where each section
+// of a placement-loop step begins and adds the cycles since the last such
+// point to the section that ended; it also counts the steps and the block
+// and cluster barriers it passes, and the loop's globaltimer nanoseconds
+// and cycles, so that cycles convert to time.  The loop's last launch in
+// each translation unit leaves its sums in round_prof_out, which
+// armada_round_step_profile copies out.
+#ifdef ROUND_STEP_PROFILE
+enum { PS_WINDOW, PS_KEYS, PS_PICK, PS_GATE, PS_NODE, PS_CLUSTER, PS_COMMIT, PS_AFTER, PS_END,
+       PS_STEPS, PS_BARRIERS, PS_LOOP_NS, PS_LOOP_CYCLES, PS_SLOTS };
+static __device__ long long round_prof_out[PS_SLOTS];
+__shared__ long long prof_acc[PS_SLOTS];
+__shared__ long long prof_t;
+__shared__ int prof_cur;
+static __device__ __forceinline__ bool prof_thread() {
+    return threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0;
+}
+static __device__ __forceinline__ long long prof_ns() {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+// Section s begins: the cycles since the last mark go to the one that ended.
+static __device__ __forceinline__ void prof_begin(int s) {
+    if (prof_thread()) {
+        const long long t = clock64();
+        prof_acc[prof_cur] += t - prof_t;
+        prof_t = t;
+        prof_cur = s;
+    }
+}
+static __device__ __forceinline__ int prof_section() { return prof_cur; }
+#define ARMADA_BAR_HOOK() (prof_thread() ? (void)++prof_acc[PS_BARRIERS] : (void)0)
+#define PROF_BEGIN(s) prof_begin(s)
+#else
+#define PROF_BEGIN(s) ((void)0)
+#endif
+
 #include "common.cuh"
+
+// The placement loop's dynamic shared memory (a CPU build of the kernels
+// may define it otherwise).
+#ifndef ROUND_DYN_SHARED
+#define ROUND_DYN_SHARED(name) extern __shared__ __align__(16) unsigned char name[]
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -95,6 +166,21 @@ static_assert(EXT_BLOCK <= ARMADA_BLOCK && EXT_BLOCK % 32 == 0,
 #define BK_BLOCK 640
 #endif
 static_assert(BK_BLOCK <= ARMADA_BLOCK && BK_BLOCK % 32 == 0 && BK_BLOCK >= 64,
+              "the per-warp tables are sized for ARMADA_BLOCK threads");
+// Threads of the other instantiations (single-commit, with or without
+// prefer-large or the fit cache): 768 leave 80 registers a thread, which
+// the step needs without spilling (at 1,024 threads, 64 registers, it
+// spilled; ptxas -v, sm_90a); with the node-type bias 640, 96
+// registers (at 80 it spilled 4-12 bytes; ptxas sizes registers for whole
+// groups of 128 threads, so 704 threads still leave 80).
+#ifndef LOOP_BLOCK
+#define LOOP_BLOCK 768
+#endif
+#ifndef LOOP_BLOCK_HET
+#define LOOP_BLOCK_HET 640
+#endif
+static_assert(LOOP_BLOCK <= ARMADA_BLOCK && LOOP_BLOCK % 32 == 0 && LOOP_BLOCK_HET <= ARMADA_BLOCK &&
+                  LOOP_BLOCK_HET % 32 == 0,
               "the per-warp tables are sized for ARMADA_BLOCK threads");
 // Prefer-large ordering: the offset that lifts over-budget queues' keys
 // (fair_scheduler.py _PL_OVER), added in f32.
@@ -221,10 +307,9 @@ enum { SC_NSLOTS = 0, SC_ITERS = 1, SC_TERM = 2, SC_SCHED = 3, SC_DONE = 4, SC_K
 
 // Lane l of a stacked round: every lane has lane 0's shapes, so each array
 // of lane l starts l x (its per-lane element count) past lane 0's.  The
-// problem's arrays and K-A's shares (`inputs_of`), then the state the round
-// writes (`state_of`); the sharded round (K-K) offsets only the state, by
-// its replica (round_cluster.cu).
-static __device__ __forceinline__ RoundArgs inputs_of(RoundArgs a, long long l) {
+// problem's arrays and K-A's shares (`inputs_at`), then the state the round
+// writes (`state_at`, by the lane's replica in a cluster), in place.
+static __device__ __forceinline__ void inputs_at(RoundArgs& a, long long l) {
     const long long N = a.N, R = a.R, G = a.G, Q = a.Q, RJ = a.RJ;
     const long long NR = N * R;
     a.node_total += l * NR;
@@ -273,10 +358,9 @@ static __device__ __forceinline__ RoundArgs inputs_of(RoundArgs a, long long l) 
     a.type_bias += l * (long long)a.TR * a.T;
     a.key_type_row += l * a.K;
     a.g_queue += l * G;
-    return a;
 }
 
-static __device__ __forceinline__ RoundArgs state_of(RoundArgs a, long long l, long long scal_off) {
+static __device__ __forceinline__ void state_at(RoundArgs& a, long long l, long long scal_off) {
     const long long N = a.N, R = a.R, G = a.G, Q = a.Q, RJ = a.RJ;
     const long long P1NR = (long long)a.P1 * N * R;
     a.used += l * P1NR;
@@ -329,11 +413,12 @@ static __device__ __forceinline__ RoundArgs state_of(RoundArgs a, long long l, l
     a.wide_i += l * a.WI;
     a.wide_f += l * a.WF;
     a.wide_b += l * a.WB;
-    return a;
 }
 
 static __device__ __forceinline__ RoundArgs lane_of(RoundArgs a, long long l) {
-    return state_of(inputs_of(a, l), l, l);
+    inputs_at(a, l);
+    state_at(a, l, l);
+    return a;
 }
 
 
@@ -351,7 +436,35 @@ static __device__ __forceinline__ RoundArgs lane_of(RoundArgs a, long long l) {
 struct QPick {
     float v, sz;
     int q, g;
+    unsigned f;  // the step's flags (QF_*), OR'ed by the placement loop's pick
+    int slot;    // the placement loop's half-warp that holds the pick's record
 };
+
+// Flags the queue pick's reduction carries: some queue has a candidate, some
+// cursor advanced, some window was all skipped with gangs left (EXT).
+enum { QF_ANY = 1u, QF_ADV = 2u, QF_HID = 4u };
+
+#define FULL_MASK 0xffffffffu
+
+static __device__ __forceinline__ bool qpick_less(const QPick& a, const QPick& b);
+
+// The warp's least QPick and the OR of its flags, in every lane (a
+// butterfly: the order is total over distinct queues).
+static __device__ __forceinline__ QPick qpick_warp(QPick a) {
+    for (int off = 16; off > 0; off >>= 1) {
+        QPick o;
+        o.v = __shfl_xor_sync(FULL_MASK, a.v, off);
+        o.sz = __shfl_xor_sync(FULL_MASK, a.sz, off);
+        o.q = __shfl_xor_sync(FULL_MASK, a.q, off);
+        o.g = __shfl_xor_sync(FULL_MASK, a.g, off);
+        o.f = __shfl_xor_sync(FULL_MASK, a.f, off);
+        o.slot = __shfl_xor_sync(FULL_MASK, a.slot, off);
+        const unsigned f = a.f | o.f;
+        if (qpick_less(o, a)) a = o;
+        a.f = f;
+    }
+    return a;
+}
 
 static __device__ __forceinline__ bool qpick_less(const QPick& a, const QPick& b) {
     if (a.v != b.v) return a.v < b.v;
@@ -378,7 +491,7 @@ static __device__ QPick block_qpick(QPick a, QPick* sh) {
         if (qpick_less(o, a)) a = o;
     }
     if (lane == 0) sh[warp] = a;
-    __syncthreads();
+    ARMADA_SYNC();
     if (warp == 0) {
         const int nw = (blockDim.x + 31) >> 5;
         QPick b = lane < nw ? sh[lane] : QPick{ARMADA_INF, -ARMADA_INF, ARMADA_BIGI, 0};
@@ -388,9 +501,9 @@ static __device__ QPick block_qpick(QPick a, QPick* sh) {
         }
         if (lane == 0) sh[ARMADA_WARPS] = b;
     }
-    __syncthreads();
+    ARMADA_SYNC();
     const QPick r = sh[ARMADA_WARPS];
-    __syncthreads();
+    ARMADA_SYNC();
     return r;
 }
 
@@ -415,12 +528,63 @@ static __device__ __forceinline__ unsigned long long pick_key(unsigned prio, flo
            (unsigned long long)(unsigned)n;
 }
 
+// One node pass's partial over a warp, a CTA or the cluster: the clean and
+// own-level argmins (score, node) and the fitting copies at each level.
+struct NodePart {
+    ArgMin c, l;
+    long long sc, sl;
+};
+
+static __device__ __forceinline__ NodePart npart_empty() {
+    return NodePart{{ARMADA_INF, ARMADA_BIGI, 0}, {ARMADA_INF, ARMADA_BIGI, 0}, 0, 0};
+}
+
+static __device__ __forceinline__ ArgMin argmin_xor(ArgMin a, int off) {
+    ArgMin o;
+    o.v = __shfl_xor_sync(FULL_MASK, a.v, off);
+    o.i = __shfl_xor_sync(FULL_MASK, a.i, off);
+    o.extra = __shfl_xor_sync(FULL_MASK, a.extra, off);
+    return argmin_pick(a, o);
+}
+
+// The warp's NodePart in every lane (argmins tie to the lower node, sums
+// exact: the result is the order-free one).
+static __device__ __forceinline__ NodePart npart_warp(NodePart p) {
+    for (int off = 16; off > 0; off >>= 1) {
+        p.c = argmin_xor(p.c, off);
+        p.l = argmin_xor(p.l, off);
+        p.sc += __shfl_xor_sync(FULL_MASK, p.sc, off);
+        p.sl += __shfl_xor_sync(FULL_MASK, p.sl, off);
+    }
+    return p;
+}
+
+// A live queue's candidate of the step with what the gate and the fit read
+// of it: its request (and the node, total and floating parts of it), and
+// the gate's verdicts.  Each half-warp of the window walk keeps its best.
+struct Cand {
+    float req[MAX_R], req_node[MAX_R], req_tot[MAX_R], req_float[MAX_R];
+    int g, card, level, key, pc, run, ban, trow;
+    unsigned cmask;  // the key's compat row (T <= 32)
+    int hit_burst, gate_global, gate_queue, float_ok;
+};
+
+// A live queue and its window's span, staged in shared memory for the first
+// LIVE_STAGE live queues.
+struct LiveQ {
+    int q, start, len;
+};
+#ifndef LIVE_STAGE
+#define LIVE_STAGE 256
+#endif
+
 struct LoopShared {
     int nlive;
     int done, iterations, kiters, termination, cursor, sched_count, new_blocked;
     int advanced, hidden;
     // the iteration's pick
-    int any_q, qstar, g, card, level, key, pc, run, is_ev, pinned, trow;
+    int any_q, qstar, g, card, level, key, pc, run, is_ev, pinned, trow, ban;
+    unsigned cmask;
     int attempt, gate_global, gate_queue, hit_burst, float_ok, placed, n_ext;
     float req[MAX_R], req_node[MAX_R], req_tot[MAX_R], req_float[MAX_R];
     // the fit
@@ -430,6 +594,24 @@ struct LoopShared {
     int cacheable, cslot, chit, nhits, nmisses;
     // the node range this CTA reduces over: [0, N) but in the sharded round
     int n0, n1;
+    // the loop's R-sized accumulators, kept here for the whole loop and
+    // written back after it (RoundArgs' pointers are redirected to them)
+    float h_sched_res[MAX_R], h_float_used[MAX_R], h_spot_res[MAX_R], h_spot_price;
+    // where they, and the per-queue state when shared memory holds it
+    // (hotq), go back after the loop
+    float *out_sched_res, *out_float_used, *out_spot_res, *out_spot_price, *out_q_alloc;
+    int *out_q_sched, *out_q_head;
+    u8* out_q_killed;
+    // the allocatable rows load as one float4 (R = 4, 16-byte aligned)
+    int row4;
+    // the lane's (and replica's) spread rows, and a market round
+    int *nodes_w, *counts_w;
+    int market;
+    // the problem's R-sized rows the step reads
+    float inv_scale[MAX_R], c_total[MAX_R], c_mult[MAX_R], c_rcap[MAX_R], c_ftot[MAX_R],
+        c_nax[MAX_R];
+    // a gang pass's fitting copies at both levels, for every thread
+    long long psc, psl;
 };
 
 // The multi-commit extension's tables (fair_scheduler.py:773-1016): pick e
@@ -510,6 +692,9 @@ static __host__ __device__ inline void wide_need(int commit_k, int batch_k, long
 // single-block argmin.  Two publish buffers alternate, so one barrier a pass
 // suffices: a CTA rewrites a buffer only after the next pass's barrier,
 // which every CTA reaches after its last read of it.
+// The widest cluster: 16 CTAs, a non-portable cluster size on Hopper.
+#define MAX_CLUSTER 16
+
 struct ClusterPub {
     ArgMin m[2];
     long long s[2];
@@ -526,6 +711,10 @@ template <int NM, int NS, int NK>
 static __device__ void cluster_combine(ClusterX& cx, ArgMin* m, long long* s,
                                        unsigned long long* k) {
     cg::cluster_group cl = cg::this_cluster();
+#ifdef ROUND_STEP_PROFILE
+    const int prof_was = prof_section();
+#endif
+    PROF_BEGIN(PS_CLUSTER);
     const int ph = cx.phase;
     ClusterPub* mine = &cx.pub[ph];
     if (threadIdx.x == 0) {
@@ -533,6 +722,7 @@ static __device__ void cluster_combine(ClusterX& cx, ArgMin* m, long long* s,
         for (int i = 0; i < NS; ++i) mine->s[i] = s[i];
         for (int i = 0; i < NK; ++i) mine->k[i] = k[i];
     }
+    ARMADA_BAR_HOOK();
     cl.sync();
     if (threadIdx.x < 32) {
         const int lane = threadIdx.x;
@@ -569,10 +759,56 @@ static __device__ void cluster_combine(ClusterX& cx, ArgMin* m, long long* s,
             cx.phase = ph ^ 1;
         }
     }
-    __syncthreads();
+    ARMADA_SYNC();
     for (int i = 0; i < NM; ++i) m[i] = cx.comb.m[i];
     for (int i = 0; i < NS; ++i) s[i] = cx.comb.s[i];
     for (int i = 0; i < NK; ++i) k[i] = cx.comb.k[i];
+#ifdef ROUND_STEP_PROFILE
+    prof_begin(prof_was);
+#endif
+}
+
+// A node pass's CTA partial (valid in warp 0) combined with the cluster's
+// (the single-commit pass's one exchange): thread 0 publishes it, every
+// thread of the cluster passes one cluster barrier, and warp 0 reads the S
+// partials through distributed shared memory.  Warp 0 ends with the
+// cluster's answer; the other warps pass through, since only warp 0
+// commits.  The publish buffers alternate as in cluster_combine.
+static __device__ void cluster_part(ClusterX& cx, NodePart& t) {
+    cg::cluster_group cl = cg::this_cluster();
+#ifdef ROUND_STEP_PROFILE
+    const int prof_was = prof_section();
+#endif
+    PROF_BEGIN(PS_CLUSTER);
+    int ph = 0;
+    if (threadIdx.x < 32) {
+        ph = cx.phase;
+        if (threadIdx.x == 0) {
+            ClusterPub* mine = &cx.pub[ph];
+            mine->m[0] = t.c;
+            mine->m[1] = t.l;
+            mine->s[0] = t.sc;
+            mine->s[1] = t.sl;
+        }
+    }
+    ARMADA_BAR_HOOK();
+    cl.sync();
+    if (threadIdx.x < 32) {
+        const int lane = threadIdx.x;
+        NodePart r = npart_empty();
+        if (lane < cx.S) {
+            const ClusterPub* o = cl.map_shared_rank(&cx.pub[ph], lane);
+            r.c = o->m[0];
+            r.l = o->m[1];
+            r.sc = o->s[0];
+            r.sl = o->s[1];
+        }
+        t = npart_warp(r);
+        if (lane == 0) cx.phase = ph ^ 1;
+    }
+#ifdef ROUND_STEP_PROFILE
+    prof_begin(prof_was);
+#endif
 }
 
 __device__ __forceinline__ int gq_at(const RoundArgs& a, long long idx) {
@@ -657,7 +893,7 @@ static __device__ void extension(const RoundArgs& a, LoopShared& sh, X& ext, Clu
         }
         if (lane == 0) ext.m = m;
     }
-    __syncthreads();
+    ARMADA_SYNC();
     const int m = ext.m;
 
     // (3) each pick's head gang and eligibility: unbanned, non-evictee,
@@ -714,7 +950,7 @@ static __device__ void extension(const RoundArgs& a, LoopShared& sh, X& ext, Clu
         ext.qk[k] = q;
         ext.nk[k] = nkv;
     }
-    __syncthreads();
+    ARMADA_SYNC();
 
     // (4) caps, burst, floating capacity and the iteration bound in commit
     // order, with the sequential f32 accumulation; (5) no earlier batch
@@ -747,7 +983,7 @@ static __device__ void extension(const RoundArgs& a, LoopShared& sh, X& ext, Clu
         }
         ext.m_ok = mo;
     }
-    __syncthreads();
+    ARMADA_SYNC();
     const int mo = ext.m_ok;
     if (mo == 0) return;
 
@@ -802,7 +1038,7 @@ static __device__ void extension(const RoundArgs& a, LoopShared& sh, X& ext, Clu
             }
             if (lane == 0) ext.red[warp][i] = v;
         }
-        __syncthreads();
+        ARMADA_SYNC();
         if (CL) {
             if (tid < cn) {
                 unsigned long long v = ~0ull;
@@ -811,7 +1047,7 @@ static __device__ void extension(const RoundArgs& a, LoopShared& sh, X& ext, Clu
                     if (ext.red[w][tid] < v) v = ext.red[w][tid];
                 ext.kmin[tid] = v;
             }
-            __syncthreads();
+            ARMADA_SYNC();
             unsigned long long kk[EXT_CHUNK];
             for (int i = 0; i < EXT_CHUNK; ++i) kk[i] = i < cn ? ext.kmin[i] : ~0ull;
             cluster_combine<0, 0, EXT_CHUNK>(cx, nullptr, nullptr, kk);
@@ -834,7 +1070,7 @@ static __device__ void extension(const RoundArgs& a, LoopShared& sh, X& ext, Clu
             ext.node[e] = found ? (int)(v & 0x7fffffffull) : 0;
             ext.lvl_sel[e] = found && (v >> 63) ? ext.level[e] : 0;
         }
-        __syncthreads();
+        ARMADA_SYNC();
     }
 
     // (7) pick e against the cumulative deltas of the earlier picks at pick
@@ -865,7 +1101,7 @@ static __device__ void extension(const RoundArgs& a, LoopShared& sh, X& ext, Clu
         ext.adj_fit[e][j] = okn && fits_row(adjs, ext.reqn[e], R);
         ext.adj_score[e][j] = packing_score(adjs, a.inv_scale, R);
     }
-    __syncthreads();
+    ARMADA_SYNC();
 
     // (8) the certified prefix, and (9) its commit in pick order
     if (tid == 0) {
@@ -971,7 +1207,7 @@ static __device__ void cached_pick(const RoundArgs& a, LoopShared& sh, int* node
         if (hit) ++sh.nhits;
         else ++sh.nmisses;
     }
-    __syncthreads();
+    ARMADA_SYNC();
     const int s = sh.cslot, level = sh.level;
     const u8* fitc;
     const float* score;
@@ -1068,7 +1304,7 @@ static __device__ void cached_pick(const RoundArgs& a, LoopShared& sh, int* node
         counts_w[0] = found ? 1 : 0;
         sh.fit_feasible = found;
     }
-    __syncthreads();
+    ARMADA_SYNC();
 }
 
 // The cache's upkeep after a step's commits: the touched nodes are the
@@ -1100,9 +1336,12 @@ static __device__ void cache_upkeep(const RoundArgs& a, const int* nodes_w, cons
         a.fitc_lvl[(long long)sl * N + n] =
             ok && fits_row(a.alloc + a.cslot_lvl[sl] * NR + (long long)n * R, req, R);
     }
-    __syncthreads();
-    // (3) the touched blocks' minima, from the patched bits and scores
-    for (int i = tid; i < CS * T; i += blockDim.x) {
+    ARMADA_SYNC();
+    // (3) the touched blocks' minima, from the patched bits and scores: a
+    // warp a (slot, touched node), its lanes over the block's CB <= 64
+    // nodes (a minimum is exact in any order)
+    const int lane = tid & 31;
+    for (int i = tid >> 5; i < CS * T; i += blockDim.x >> 5) {
         const int sl = i / T, t = i % T;
         const int n = t < W ? nodes_w[t] : ext_node[t - W];
         if (n >= N || n < n0 || n >= n1) continue;
@@ -1112,14 +1351,20 @@ static __device__ void cache_upkeep(const RoundArgs& a, const int* nodes_w, cons
         const float* s0 = a.cscore + (long long)blk * CB;
         const float* sl_ = a.cscore + (long long)a.cslot_lvl[sl] * N + (long long)blk * CB;
         float m0 = ARMADA_INF, ml = ARMADA_INF;
-        for (int k = 0; k < CB; ++k) {
+        for (int k = lane; k < CB; k += 32) {
             if (f0[k] && s0[k] < m0) m0 = s0[k];
             if (fl[k] && sl_[k] < ml) ml = sl_[k];
         }
-        a.bmc_clean[(long long)sl * NB + blk] = m0;
-        a.bmc_lvl[(long long)sl * NB + blk] = ml;
+        for (int off = 16; off > 0; off >>= 1) {
+            m0 = fminf(m0, __shfl_xor_sync(FULL_MASK, m0, off));
+            ml = fminf(ml, __shfl_xor_sync(FULL_MASK, ml, off));
+        }
+        if (lane == 0) {
+            a.bmc_clean[(long long)sl * NB + blk] = m0;
+            a.bmc_lvl[(long long)sl * NB + blk] = ml;
+        }
     }
-    __syncthreads();
+    ARMADA_SYNC();
 }
 
 // --- K11: the certified pick chain (batch_k > 1) ----------------------------------
@@ -1232,8 +1477,8 @@ static __device__ __forceinline__ bool chain_fit(const RoundArgs& a, const CH& c
 
 template <bool HET, class CH, bool CL>
 static __device__ void pick_chain(const RoundArgs& a, LoopShared& sh, CH& ch, QPick* redq,
-                                  ArgMin* red, long long* redl, ClusterX& cx) {
-    const int tid = threadIdx.x;
+                                  NodePart* npart, ClusterX& cx) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int R = a.R, N = a.N, W = a.W;
     const long long NR = (long long)N * R;
     const int E = a.batch_k - 1;
@@ -1262,7 +1507,7 @@ static __device__ void pick_chain(const RoundArgs& a, LoopShared& sh, CH& ch, QP
         }
         ch.r_spot = *a.spot_price;
     }
-    __syncthreads();
+    ARMADA_SYNC();
 
     for (int k = 0; k < E; ++k) {
         // (1) the simulated queue pick: the least key, ties to the lower queue
@@ -1336,7 +1581,7 @@ static __device__ void pick_chain(const RoundArgs& a, LoopShared& sh, CH& ch, QP
             }
             ch.stop = !ok;
         }
-        __syncthreads();
+        ARMADA_SYNC();
         if (ch.stop) break;
         if (!ch.ev) {
             // (3) the node pass: the row cache's rows, or fresh ones, with
@@ -1381,21 +1626,28 @@ static __device__ void pick_chain(const RoundArgs& a, LoopShared& sh, CH& ch, QP
                 b0 = argmin_pick(b0, ArgMin{m0, n, 0});
                 bl = argmin_pick(bl, ArgMin{ml, n, 0});
             }
-            if (!match) n0 = block_sum_ll(n0, redl);
-            b0 = block_argmin(b0, red);
-            bl = block_argmin(bl, red);
-            if (CL) {
-                ArgMin m2[2] = {b0, bl};
-                long long s1 = match ? 0 : n0;
-                cluster_combine<2, 1, 0>(cx, m2, &s1, nullptr);
-                b0 = m2[0];
-                bl = m2[1];
-                n0 = s1;
+            // the pass's three reductions in one, to warp 0 (which alone
+            // reads them): warps, then warp 0 over the warps and the
+            // cluster's CTAs (a match counts nothing: n0 stays 0)
+            {
+                NodePart p{b0, bl, n0, 0};
+                p = npart_warp(p);
+                if (lane == 0) npart[warp] = p;
+                ARMADA_SYNC();
+                const int nw = blockDim.x >> 5;
+                if (warp == 0) p = npart_warp(lane < nw ? npart[lane] : npart_empty());
+                if constexpr (CL) cluster_part(cx, p);
+                b0 = p.c;
+                bl = p.l;
+                n0 = p.sc;
             }
             // (4) the clean count and the touched nodes at their adjusted
-            // allocatable; the pick is the least (score, node) of both
-            if (tid == 0) {
-                if (!match) {
+            // allocatable; the pick is the least (score, node) of both.
+            // Warp 0: lane e takes earlier pick e's node at the clean level
+            // and at the pick's own (both, so that neither waits on the
+            // count), the lanes' counts and argmins then meet
+            if (warp == 0) {
+                if (lane == 0 && !match) {
                     ch.rc_valid = 1;
                     ch.rc_key = key;
                     ch.rc_lvl = lvl;
@@ -1403,37 +1655,47 @@ static __device__ void pick_chain(const RoundArgs& a, LoopShared& sh, CH& ch, QP
                     ch.rc_n0 = n0;
                     for (int r = 0; r < R; ++r) ch.rc_req[r] = ch.cur_reqn[r];
                 }
-                long long n0_adj = ch.rc_n0;
-                for (int e = 0; e < nprev; ++e) {
+                int dec = 0;
+                ArgMin c0{ARMADA_INF, ARMADA_BIGI, 0}, cl{ARMADA_INF, ARMADA_BIGI, 0};
+                for (int e = lane; e < nprev; e += 32) {
                     const int nd = ch.node[e];
                     bool first = true;
                     for (int f = 0; f < e; ++f) first &= ch.node[f] != nd;
-                    if (!first || !(CL ? chain_fit(a, ch, nd, 0) : a.bk_fit0[nd] != 0)) continue;
+                    const bool fit0 = CL ? chain_fit(a, ch, nd, 0) : a.bk_fit0[nd] != 0;
+                    const bool fitl = CL ? chain_fit(a, ch, nd, lvl) : a.bk_fitl[nd] != 0;
                     float adj[MAX_R];
                     chain_adjusted(a, ch, nd, 0, adj);
-                    if (!fits_row(adj, ch.cur_reqn, R)) --n0_adj;
+                    const bool a0 = fits_row(adj, ch.cur_reqn, R);
+                    dec += first && fit0 && !a0;
+                    const float bnd = bias ? bias[a.node_type[nd]] : 0.0f;
+                    if (a0 && fit0) {
+                        float sc = packing_score(adj, a.inv_scale, R);
+                        if (bias) sc = __fadd_rn(sc, bnd);
+                        c0 = argmin_pick(c0, ArgMin{sc, nd, 0});
+                    }
+                    chain_adjusted(a, ch, nd, lvl, adj);
+                    if (fits_row(adj, ch.cur_reqn, R) && fitl) {
+                        float sc = packing_score(adj, a.inv_scale, R);
+                        if (bias) sc = __fadd_rn(sc, bnd);
+                        cl = argmin_pick(cl, ArgMin{sc, nd, 0});
+                    }
                 }
-                const bool use_clean = n0_adj >= 1;
-                const int lvl_sel = use_clean ? 0 : lvl;
-                const u8* fsel = use_clean ? a.bk_fit0 : a.bk_fitl;
-                ArgMin bb = use_clean ? b0 : bl;
-                for (int e = 0; e < nprev; ++e) {
-                    const int nd = ch.node[e];
-                    float adj[MAX_R];
-                    chain_adjusted(a, ch, nd, lvl_sel, adj);
-                    const bool fit_sel = CL ? chain_fit(a, ch, nd, lvl_sel) : fsel[nd] != 0;
-                    if (!(fits_row(adj, ch.cur_reqn, R) && fit_sel)) continue;
-                    float sc = packing_score(adj, a.inv_scale, R);
-                    if (bias) sc = __fadd_rn(sc, bias[a.node_type[nd]]);
-                    bb = argmin_pick(bb, ArgMin{sc, nd, 0});
+                for (int off = 16; off > 0; off >>= 1) {
+                    dec += __shfl_xor_sync(FULL_MASK, dec, off);
+                    c0 = argmin_xor(c0, off);
+                    cl = argmin_xor(cl, off);
                 }
-                if (bb.v < ARMADA_INF) {
-                    ch.node_j = bb.i;
-                } else {
-                    ch.stop = 1;
+                if (lane == 0) {
+                    const bool use_clean = ch.rc_n0 - dec >= 1;
+                    const ArgMin bb = use_clean ? argmin_pick(b0, c0) : argmin_pick(bl, cl);
+                    if (bb.v < ARMADA_INF) {
+                        ch.node_j = bb.i;
+                    } else {
+                        ch.stop = 1;
+                    }
                 }
             }
-            __syncthreads();
+            ARMADA_SYNC();
             if (ch.stop) break;
         }
         // (5) record the pick and advance its queue's simulation
@@ -1478,7 +1740,7 @@ static __device__ void pick_chain(const RoundArgs& a, LoopShared& sh, CH& ch, QP
             a.sim_keys[qj] = sim_key(a, sh, market, qj, npos, gn);
             a.simpos[qj] = npos;
         }
-        __syncthreads();
+        ARMADA_SYNC();
     }
 
     // (6) the commit of the proven picks, in pick order
@@ -1528,6 +1790,89 @@ static __device__ void pick_chain(const RoundArgs& a, LoopShared& sh, CH& ch, QP
     }
 }
 
+// The static fit's compat row of the step's key: up to 32 node types a
+// bit mask in a register of every thread (a ballot a warp), else the row in
+// memory; a key of -1 admits every type.
+struct CompatRow {
+    const u8* row;
+    unsigned mask;
+    bool bits;
+    __device__ __forceinline__ bool admits(int ty) const { return bits ? (mask >> ty) & 1u : row[ty] != 0; }
+};
+
+// The step's pick's row: the window walk read its mask (cmask).
+static __device__ __forceinline__ CompatRow compat_row(const RoundArgs& a, int key, unsigned cmask) {
+    const int T = a.T;
+    return CompatRow{a.compat + (long long)max(key, 0) * T, key < 0 ? 0xffffffffu : cmask,
+                     key < 0 || T <= 32};
+}
+
+// A single's node pass over this thread's nodes of [n0, n1): which nodes
+// the request fits at the clean level and at its own, the count of each and
+// the least (score, node) of each.  min(member_capacity, 1) >= 1 holds
+// exactly when the row fits (fits_row), so a single needs no division, and
+// the score only where the row fits.  ROW4: each row is one float4 load.
+template <bool HET, bool ROW4>
+static __device__ __forceinline__ NodePart single_pass(const RoundArgs& a, const LoopShared& sh,
+                                                       const CompatRow& cr, const u8* ban,
+                                                       const float* bias, int level, int n0, int n1) {
+    const int R = a.R;
+    const float* al0 = a.alloc;
+    const float* all = a.alloc + (long long)level * a.N * R;
+    float cv = ARMADA_INF, lv = ARMADA_INF;
+    int ci = ARMADA_BIGI, li = ARMADA_BIGI, cs = 0, ls = 0;
+    // the loads of a node do not wait on its static fit, and two nodes'
+    // loads are in flight at once: the pass is bound by their latency
+#pragma unroll 2
+    for (int n = n0 + (int)threadIdx.x; n < n1; n += blockDim.x) {
+        const int ty = a.node_type[n];
+        const bool sfit = cr.admits(ty) & (a.node_ok[n] != 0) & (ban[n] == 0);
+        bool fc, fl;
+        float s0 = 0.0f, s1 = 0.0f;
+        if constexpr (ROW4) {
+            const float4 c = reinterpret_cast<const float4*>(al0)[n];
+            const float4 l = reinterpret_cast<const float4*>(all)[n];
+            const float* q = sh.req_node;
+            const float* w = sh.inv_scale;
+            fc = sfit & (!(q[0] > 0.0f) | (c.x >= q[0])) & (!(q[1] > 0.0f) | (c.y >= q[1])) &
+                 (!(q[2] > 0.0f) | (c.z >= q[2])) & (!(q[3] > 0.0f) | (c.w >= q[3]));
+            fl = sfit & (!(q[0] > 0.0f) | (l.x >= q[0])) & (!(q[1] > 0.0f) | (l.y >= q[1])) &
+                 (!(q[2] > 0.0f) | (l.z >= q[2])) & (!(q[3] > 0.0f) | (l.w >= q[3]));
+            // packing_score's left-to-right chain at R = 4
+            s0 = __fmaf_rn(c.w, w[3], __fmaf_rn(c.z, w[2], __fmaf_rn(c.y, w[1], __fmul_rn(c.x, w[0]))));
+            s1 = __fmaf_rn(l.w, w[3], __fmaf_rn(l.z, w[2], __fmaf_rn(l.y, w[1], __fmul_rn(l.x, w[0]))));
+        } else {
+            if (!sfit) continue;
+            const float* rc = al0 + (long long)n * R;
+            const float* rl = all + (long long)n * R;
+            fc = fits_row(rc, sh.req_node, R);
+            fl = fits_row(rl, sh.req_node, R);
+            if (fc) s0 = packing_score(rc, sh.inv_scale, R);
+            if (fl) s1 = packing_score(rl, sh.inv_scale, R);
+        }
+        if (HET && (fc || fl)) {
+            const float bb = bias[ty];
+            s0 = __fadd_rn(s0, bb);
+            s1 = __fadd_rn(s1, bb);
+        }
+        if (fc) {
+            ++cs;
+            if (argmin_less(s0, n, cv, ci)) {
+                cv = s0;
+                ci = n;
+            }
+        }
+        if (fl) {
+            ++ls;
+            if (argmin_less(s1, n, lv, li)) {
+                lv = s1;
+                li = n;
+            }
+        }
+    }
+    return NodePart{{cv, ci, 0}, {lv, li, 0}, cs, ls};
+}
+
 // nodes_w / counts_w: i32[P, W] rows holding the (node, count) spread of
 // the gang being placed; node N marks an unused entry.  One instantiation
 // per loop shape, so that each carries only its own branches' registers:
@@ -1540,13 +1885,15 @@ static __device__ void pick_chain(const RoundArgs& a, LoopShared& sh, CH& ch, QP
 // every instantiation (CS > 0).  WIDE: the extension's or the chain's tables
 // in global scratch (commit_k > MAX_COMMIT_K or batch_k > MAX_BATCH_K).
 //
-// CL: K-K, the round over S node shards as one thread-block cluster of S
-// CTAs (grid S x 1, cluster S x 1; round_cluster.cu).  Every CTA runs the
-// whole loop on its own replica of the round's state (`state_of`, replica
-// `rank`; rank 0's is the round's output, the wrapper allocates the others
-// and round.cu copies the post-eviction state into them), reduces every node
-// pass over its own node range only, and combines the partials across the
-// cluster (`cluster_combine`).  Every CTA so makes every decision and every
+// CL: the round over S node shards as one thread-block cluster of S CTAs a
+// lane (grid S x P, cluster S x 1; round_cluster.cu): every solo and stacked
+// round whose cluster size S the wrapper's owner sets above 1, and K-K, whose
+// mesh sets it.  Every CTA runs the whole loop on its own replica of the
+// round's state (`state_at`, replica `rank` of lane l at rank x P + l; rank
+// 0's are the round's output, the wrapper allocates the others and round.cu
+// copies the post-eviction state into them), reduces every node pass over
+// its own node range only, and combines the partials across the cluster
+// (`cluster_part`, `cluster_combine`).  Every CTA so makes every decision and every
 // commit itself, on identical state: no CTA writes an address another reads,
 // and distributed shared memory carries the only traffic between them.  The
 // replicas cost a copy of the mutable state a CTA (the [P1, N, R] allocatable
@@ -1554,29 +1901,75 @@ static __device__ void pick_chain(const RoundArgs& a, LoopShared& sh, CH& ch, QP
 // arrays) is read in place in global memory by every CTA: job shards only
 // pad and lay it out.
 template <bool EXT, bool PL, bool HET, bool BK, bool WIDE, bool CL>
-__global__ void __launch_bounds__(EXT ? EXT_BLOCK : BK ? BK_BLOCK : ARMADA_BLOCK, 1)
-    place_loop_kernel(RoundArgs a0, int* nodes_w, int* counts_w) {
+__global__ void __launch_bounds__(EXT ? EXT_BLOCK : BK ? BK_BLOCK : HET ? LOOP_BLOCK_HET : LOOP_BLOCK, 1)
+    place_loop_kernel(RoundArgs a0, int* nodes_w0, int* counts_w0, int hotq) {
+    static_assert(SKIP_WINDOW == 16, "the window walk gives each live queue a half-warp");
     int rank = 0, S_ = 1;
     if constexpr (CL) {
         rank = (int)cg::this_cluster().block_rank();
         S_ = (int)cg::this_cluster().num_blocks();
     }
-    const RoundArgs a = CL ? state_of(inputs_of(a0, 0), rank, 8LL * rank) : lane_of(a0, blockIdx.y);
-    const long long lane = CL ? rank : blockIdx.y;
-    nodes_w += lane * a.W;
-    counts_w += lane * a.W;
+    // lane blockIdx.y; in the cluster its replica `rank`, state (rank x P +
+    // lane), the scalar block's [8, P] rows of replica rank
+    const long long lane = blockIdx.y, rep = (long long)rank * a0.P + lane;
     __shared__ LoopShared sh;
     __shared__ typename std::conditional<WIDE, ExtWide, ExtShared>::type ext;
     __shared__ typename std::conditional<WIDE, ChainWide, ChainShared>::type ch;
     __shared__ QPick redq[ARMADA_WARPS + 1];
     __shared__ ArgMin red[ARMADA_WARPS + 1];
-    __shared__ long long redl[ARMADA_WARPS + 1];
+    __shared__ NodePart npart[ARMADA_WARPS];
+    __shared__ Cand cands[2 * ARMADA_WARPS];
+    __shared__ LiveQ live_tab[LIVE_STAGE];
     __shared__ ClusterX cx;
+    // the lane's (and replica's) arguments, in shared memory: no thread
+    // holds the ~100 pointers in registers
+    __shared__ RoundArgs a_sh;
+    ROUND_DYN_SHARED(dyn);
     const int tid = threadIdx.x;
-    const int R = a.R, N = a.N, W = a.W;
-    const long long NR = (long long)N * R;
-    const int n0 = CL ? rank * (N / S_) : 0, n1 = CL ? n0 + N / S_ : N;
-
+    const int wl = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+    if (tid == 0) {
+        RoundArgs& b = a_sh;
+        b = a0;
+        inputs_at(b, lane);
+        state_at(b, rep, 8LL * rank * a0.P + lane);
+        // the loop's R-sized accumulators live in shared memory until the
+        // loop ends, and so does the per-queue state (q_alloc, q_sched,
+        // q_head, q_killed) where `hot_bytes` found room for it (hotq);
+        // out_* keep where they go back
+        sh.out_q_alloc = b.q_alloc;
+        sh.out_q_sched = b.q_sched;
+        sh.out_q_head = b.q_head;
+        sh.out_q_killed = b.q_killed;
+        sh.out_sched_res = b.sched_res;
+        sh.out_float_used = b.float_used;
+        sh.out_spot_res = b.spot_res;
+        sh.out_spot_price = b.spot_price;
+        b.sched_res = sh.h_sched_res;
+        b.float_used = sh.h_float_used;
+        b.spot_res = sh.h_spot_res;
+        b.spot_price = &sh.h_spot_price;
+        if (hotq) {
+            float* qa = reinterpret_cast<float*>(dyn);
+            int* qs = reinterpret_cast<int*>(qa + (long long)b.Q * b.R);
+            b.q_alloc = qa;
+            b.q_sched = qs;
+            b.q_head = qs + b.Q;
+            b.q_killed = reinterpret_cast<u8*>(qs + 2LL * b.Q);
+        }
+        // R = 4 rows load as one float4 where the allocatable is 16-byte aligned
+        sh.row4 = b.R == 4 && ((unsigned long long)b.alloc & 15ull) == 0;
+        sh.nodes_w = nodes_w0 + rep * b.W;
+        sh.counts_w = counts_w0 + rep * b.W;
+        sh.market = *b.market != 0;
+        sh.n0 = CL ? rank * (b.N / S_) : 0;
+        sh.n1 = CL ? sh.n0 + b.N / S_ : b.N;
+    }
+    ARMADA_SYNC();
+    const RoundArgs& a = a_sh;
+    // Kernel-wide values stay in shared memory (sh, a_sh), and each phase
+    // below reads what it needs: at 1,024 threads a thread has 64 registers.
+    {
+    const int R = a.R, N = a.N, n0 = sh.n0, n1 = sh.n1;
     // live queues (those holding gangs), ascending; and the loop state
     if (tid == 0) {
         int n = 0;
@@ -1592,22 +1985,29 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : BK ? BK_BLOCK : ARMADA_BLOCK
         sh.new_blocked = 0;
         sh.nhits = 0;
         sh.nmisses = 0;
-        sh.n0 = n0;
-        sh.n1 = n1;
+        sh.h_spot_price = -1.0f;
         cx.phase = 0;
         cx.S = S_;
         if constexpr (WIDE) wide_bind(a, ext, ch);
     }
+    if (hotq)
+        for (long long i = tid; i < (long long)a.Q * R; i += blockDim.x) a.q_alloc[i] = sh.out_q_alloc[i];
     for (int q = tid; q < a.Q; q += blockDim.x) {
         a.q_head[q] = 0;
         a.q_sched[q] = 0;
         a.q_killed[q] = a.q_weight[q] > 0.0f ? 0 : 1;
     }
     for (int r = tid; r < R; r += blockDim.x) {
-        a.sched_res[r] = 0.0f;
-        a.spot_res[r] = 0.0f;
+        sh.h_sched_res[r] = 0.0f;
+        sh.h_spot_res[r] = 0.0f;
+        sh.h_float_used[r] = sh.out_float_used[r];
+        sh.inv_scale[r] = a.inv_scale[r];
+        sh.c_total[r] = a.total_pool[r];
+        sh.c_mult[r] = a.drf_mult[r];
+        sh.c_rcap[r] = a.round_cap[r];
+        sh.c_ftot[r] = a.float_total[r];
+        sh.c_nax[r] = a.node_axes[r];
     }
-    if (tid == 0) *a.spot_price = -1.0f;
     // the fit cache's scores over the post-eviction allocatable
     if (a.CS > 0) {
         const long long span = n1 - n0;
@@ -1616,8 +2016,23 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : BK ? BK_BLOCK : ARMADA_BLOCK
             a.cscore[c] = packing_score(a.alloc + c * R, a.inv_scale, R);
         }
     }
-    __syncthreads();
-    const bool market = *a.market != 0;
+    }
+    ARMADA_SYNC();
+    for (int li = tid; li < min(sh.nlive, LIVE_STAGE); li += blockDim.x) {
+        const int q = a.live_q[li];
+        live_tab[li] = LiveQ{q, a.q_start[q], a.q_len[q]};
+    }
+    ARMADA_SYNC();
+#ifdef ROUND_STEP_PROFILE
+    long long prof_ns0 = 0, prof_c0 = 0;
+    if (prof_thread()) {
+        for (int i = 0; i < PS_SLOTS; ++i) prof_acc[i] = 0;
+        prof_cur = PS_END;
+        prof_ns0 = prof_ns();
+        prof_c0 = clock64();
+        prof_t = prof_c0;
+    }
+#endif
 
     // unroll: the loop condition is read every `unroll` steps; a step past
     // done or the iteration bound is a no-op (the body's gate)
@@ -1629,129 +2044,292 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : BK ? BK_BLOCK : ARMADA_BLOCK
         }
         --steps_left;
         if (sh.done || sh.iterations >= a.max_iter) continue;
-        // --- cursors, candidates and the queue pick -----------------------------
-        QPick best{ARMADA_INF, -ARMADA_INF, ARMADA_BIGI, 0};
-        bool any_has = false, adv = false, hid = false;  // hid: EXT only
-        for (int li = tid; li < sh.nlive; li += blockDim.x) {
-            const int q = a.live_q[li];
-            const int head = a.q_head[q], len = a.q_len[q], start = a.q_start[q];
-            int nskip = 0;
-            for (int w = 0; w < SKIP_WINDOW; ++w) {
-                const int off = head + w;
-                if (off >= len) break;
-                const int gang = gq_at(a, (long long)start + off);
-                const int key = a.g_key[gang];
-                const bool bad = key >= 0 && a.key_bad[key];
-                if (!(a.g_state[gang] != 0 || bad)) break;
-                ++nskip;
-            }
-            a.q_head[q] = head + nskip;
-            adv |= nskip > 0;
-            // the extensions read the window from its pre-skip start
-            if (EXT || BK) a.q_nskip[q] = nskip;
-            if (EXT) hid |= nskip >= SKIP_WINDOW && head + nskip < len;
-            const bool visible = nskip < SKIP_WINDOW && head + nskip < len;
-            const int cand = visible ? gq_at(a, (long long)start + head + nskip) : 0;
-            const bool cand_new = a.g_run[cand] < 0;
-            const bool has = visible && !(cand_new && (sh.new_blocked || a.q_killed[q])) &&
-                             a.q_weight[q] > 0.0f;
-            float key = ARMADA_INF;
-            if (has) {
-                if (market) {
-                    key = -a.g_price[cand];
-                } else {
-                    float x[MAX_R];
-                    const float cardf = (float)a.g_card[cand];
-                    for (int r = 0; r < R; ++r)
-                        x[r] = __fadd_rn(__fadd_rn(a.q_alloc[q * R + r], a.q_penalty[q * R + r]),
-                                         __fmul_rn(a.g_req[(long long)cand * R + r], cardf));
-                    key = drf_weighted(x, a.total_pool, a.drf_mult, a.q_weight[q], R);
-                    if (PL) {
-                        // within budget: the current cost; over budget:
-                        // PL_OVER + the proposed cost, rounded in f32
-                        const float w = a.q_weight[q];
-                        const float budget = w > 0.0f ? __fdiv_rn(a.dcafs[q], fmaxf(w, 1e-9f)) : 0.0f;
-                        if (key <= budget) {
-                            for (int r = 0; r < R; ++r)
-                                x[r] = __fadd_rn(a.q_alloc[q * R + r], a.q_penalty[q * R + r]);
-                            key = drf_weighted(x, a.total_pool, a.drf_mult, w, R);
-                        } else {
-                            key = __fadd_rn(PL_OVER, key);
+        PROF_BEGIN(PS_WINDOW);
+#ifdef ROUND_STEP_PROFILE
+        if (prof_thread()) ++prof_acc[PS_STEPS];
+#endif
+        // --- the cursor window, the candidates and their gates: a half-warp a
+        // live queue, two queues at once ---------------------------------------------
+        // Lane w of a half-warp reads entry head + w of its queue's window
+        // and, speculatively, what the gate reads of that entry's gang; a
+        // ballot over "skippable" gives the leading run (the reference's
+        // cumprod, fair_scheduler.py:394-395), whose end is the candidate.
+        // Lane r then takes resource r of the candidate's request: its DRF
+        // term (the key is their max over the lanes, then one division) and
+        // its caps; lanes t and t + 16 read the candidate key's compat row
+        // into a bit mask (T <= 32).  So every live queue's candidate arrives
+        // with its key and its gate in three dependent global loads after
+        // the staged queue table, and the half-warp keeps its best
+        // candidate's record (cands[hw]) for warp 0.  A half-warp walks
+        // queues li and li + 2 x warps side by side: their loads are in
+        // flight together.
+        QPick best{ARMADA_INF, -ARMADA_INF, ARMADA_BIGI, 0, 0u, 0};
+        {
+            const int R = a.R, T = a.T, half = wl >> 4, w16 = wl & 15, hw = tid >> 4;
+            const bool market = sh.market;
+            const int nlive = sh.nlive;
+            const unsigned hmask = 0xffffu << (half << 4);
+            for (int li0 = 2 * warp; li0 < nlive; li0 += 4 * nwarps) {
+                int q[2], head[2], len[2], gang[2], kk[2], run[2], pc[2];
+                bool qv[2], skip[2];
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                    const int li = li0 + half + u * 2 * nwarps;
+                    qv[u] = li < nlive;
+                    int start;
+                    if (li < LIVE_STAGE) {
+                        const LiveQ e = live_tab[qv[u] ? li : 0];
+                        q[u] = e.q;
+                        start = e.start;
+                        len[u] = e.len;
+                    } else {
+                        q[u] = a.live_q[qv[u] ? li : 0];
+                        start = a.q_start[q[u]];
+                        len[u] = a.q_len[q[u]];
+                    }
+                    head[u] = a.q_head[q[u]];
+                    gang[u] = gq_at(a, (long long)start + head[u] + w16);
+                    kk[u] = a.g_key[gang[u]];
+                    const int st = a.g_state[gang[u]];
+                    run[u] = a.g_run[gang[u]];
+                    pc[u] = a.g_pc[gang[u]];
+                    const bool bad = kk[u] >= 0 && a.key_bad[kk[u]] != 0;
+                    skip[u] = qv[u] && head[u] + w16 < len[u] && (st != 0 || bad);
+                }
+                // the candidates, and what their half-warp reads of each: lane
+                // r the request, the queue's allocation and penalty, its
+                // priority class's usage and cap; lanes t and t + 16 the
+                // compat row's bytes; every lane the gang's cardinality; lane
+                // 0 its level, ban row, type row, queue (prefer-large) and
+                // price (market)
+                int nskip[2], cand[2], c_key[2], c_card[2], c_run[2], c_pc[2], c_lvl[2], c_ban[2], c_trow[2];
+                bool has[2];
+                float req[2], qa[2], qp[2], qpc[2], qcap_r[2], cw[2], price[2];
+                bool cb0[2], cb1[2];
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                    const unsigned run16 = (__ballot_sync(FULL_MASK, skip[u]) >> (half << 4)) & 0xffffu;
+                    nskip[u] = __ffs(~run16) - 1;
+                    const int src = (half << 4) + (nskip[u] < SKIP_WINDOW ? nskip[u] : 0);
+                    const int cand_g = __shfl_sync(FULL_MASK, gang[u], src);
+                    c_key[u] = __shfl_sync(FULL_MASK, kk[u], src);
+                    c_run[u] = __shfl_sync(FULL_MASK, run[u], src);
+                    c_pc[u] = __shfl_sync(FULL_MASK, pc[u], src);
+                    const int qq = q[u];
+                    const bool visible = qv[u] && nskip[u] < SKIP_WINDOW && head[u] + nskip[u] < len[u];
+                    cand[u] = visible ? cand_g : 0;
+                    has[u] = visible && !(c_run[u] < 0 && (sh.new_blocked || a.q_killed[qq])) &&
+                             a.q_weight[qq] > 0.0f;
+                    req[u] = qa[u] = qp[u] = qpc[u] = qcap_r[u] = cw[u] = price[u] = 0.0f;
+                    c_card[u] = c_lvl[u] = c_ban[u] = c_trow[u] = 0;
+                    if (has[u]) {
+                        const int g = cand[u];
+                        c_card[u] = a.g_card[g];
+                        if (w16 < R) {
+                            const int r = w16;
+                            req[u] = a.g_req[(long long)g * R + r];
+                            qa[u] = a.q_alloc[qq * R + r];
+                            qp[u] = a.q_penalty[qq * R + r];
+                            qpc[u] = a.q_alloc_pc[((long long)qq * a.C + c_pc[u]) * R + r];
+                            qcap_r[u] = a.pc_queue_cap[c_pc[u] * R + r];
+                        }
+                        if (w16 == 0) {
+                            c_lvl[u] = a.g_level[g];
+                            c_ban[u] = a.g_ban_row[g];
+                            if (HET && c_key[u] >= 0) c_trow[u] = a.key_type_row[c_key[u]];
+                            if (PL) cw[u] = a.q_weight[a.g_queue[g]];
+                            if (market) price[u] = a.g_price[g];
+                        }
+                    }
+                    const u8* crow = a.compat + (long long)max(c_key[u], 0) * T;
+                    cb0[u] = has[u] && c_key[u] >= 0 && w16 < T && crow[w16] != 0;
+                    cb1[u] = has[u] && c_key[u] >= 0 && w16 + 16 < T && crow[w16 + 16] != 0;
+                }
+                PROF_BEGIN(PS_KEYS);
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                    const int qq = q[u];
+                    // lane r: resource r of the candidate's request, its DRF
+                    // terms (with the candidate, without it and of the gang
+                    // alone, prefer-large's) and its caps
+                    const float cardf = (float)c_card[u];
+                    float term = -ARMADA_INF, term0 = -ARMADA_INF, termg = -ARMADA_INF;
+                    bool rcap = false, qcap = false, fok = true;
+                    if (has[u] && w16 < R) {
+                        const int r = w16;
+                        const float rt = __fmul_rn(req[u], cardf);
+                        const float rf = __fmul_rn(__fmul_rn(req[u], __fsub_rn(1.0f, sh.c_nax[r])), cardf);
+                        if (!market) {
+                            const float t = sh.c_total[r], mult = sh.c_mult[r];
+                            const float x0 = __fadd_rn(qa[u], qp[u]);
+                            term = __fmul_rn(t > 0.0f ? __fdiv_rn(__fadd_rn(x0, rt), t) : 0.0f, mult);
+                            if (PL) {
+                                term0 = __fmul_rn(t > 0.0f ? __fdiv_rn(x0, t) : 0.0f, mult);
+                                termg = __fmul_rn(t > 0.0f ? __fdiv_rn(rt, t) : 0.0f, mult);
+                            }
+                        }
+                        rcap = __fadd_rn(a.sched_res[r], rt) > sh.c_rcap[r];
+                        qcap = __fadd_rn(qpc[u], rt) > qcap_r[u];
+                        fok = __fadd_rn(a.float_used[r], rf) <= __fadd_rn(sh.c_ftot[r], 1e-3f);
+                    }
+                    // drf_unweighted's max is exact in any order
+                    for (int off = 8; off > 0; off >>= 1) {
+                        term = fmaxf(term, __shfl_xor_sync(FULL_MASK, term, off));
+                        if (PL) {
+                            term0 = fmaxf(term0, __shfl_xor_sync(FULL_MASK, term0, off));
+                            termg = fmaxf(termg, __shfl_xor_sync(FULL_MASK, termg, off));
+                        }
+                    }
+                    rcap = (__ballot_sync(FULL_MASK, rcap) & hmask) != 0;
+                    qcap = (__ballot_sync(FULL_MASK, qcap) & hmask) != 0;
+                    fok = (__ballot_sync(FULL_MASK, !fok) & hmask) == 0;
+                    const unsigned cm = ((__ballot_sync(FULL_MASK, cb0[u]) >> (half << 4)) & 0xffffu) |
+                                        (((__ballot_sync(FULL_MASK, cb1[u]) >> (half << 4)) & 0xffffu) << 16);
+                    bool better = false;
+                    if (qv[u] && w16 == 0) {
+                        const int ns = nskip[u];
+                        a.q_head[qq] = head[u] + ns;
+                        if (ns > 0) best.f |= QF_ADV;
+                        // the extensions read the window from its pre-skip start
+                        if (EXT || BK) a.q_nskip[qq] = ns;
+                        if (EXT && ns >= SKIP_WINDOW && head[u] + ns < len[u]) best.f |= QF_HID;
+                        float key = ARMADA_INF;
+                        if (has[u]) {
+                            float sz = 0.0f;
+                            if (market) {
+                                key = -price[u];
+                            } else {
+                                const float w = a.q_weight[qq];
+                                key = w > 0.0f ? __fdiv_rn(term > 0.0f ? term : 0.0f, w) : 0.0f;
+                                if (PL) {
+                                    // within budget: the current cost; over budget:
+                                    // PL_OVER + the proposed cost, rounded in f32
+                                    const float budget =
+                                        w > 0.0f ? __fdiv_rn(a.dcafs[qq], fmaxf(w, 1e-9f)) : 0.0f;
+                                    key = key <= budget
+                                              ? (w > 0.0f ? __fdiv_rn(term0 > 0.0f ? term0 : 0.0f, w) : 0.0f)
+                                              : __fadd_rn(PL_OVER, key);
+                                }
+                            }
+                            // prefer-large's itemSize (gang_size): the gang's
+                            // unweighted DRF cost times its queue's weight
+                            if (PL) sz = __fmul_rn(termg > 0.0f ? termg : 0.0f, cw[u]);
+                            const QPick c{key, sz, qq, cand[u], best.f | QF_ANY, hw};
+                            best.f |= QF_ANY;
+                            better = qpick_less(c, best);
+                            if (better) best = c;
+                        }
+                        if (EXT) a.okey[qq] = key;
+                    }
+                    // the half-warp's best candidate so far: its record for warp 0
+                    better = __shfl_sync(FULL_MASK, better, half << 4);
+                    if (better) {
+                        Cand& cd = cands[hw];
+                        if (w16 < R) {
+                            const int r = w16;
+                            const float nax = sh.c_nax[r];
+                            cd.req[r] = req[u];
+                            cd.req_node[r] = __fmul_rn(req[u], nax);
+                            cd.req_tot[r] = __fmul_rn(req[u], cardf);
+                            cd.req_float[r] = __fmul_rn(__fmul_rn(req[u], __fsub_rn(1.0f, nax)), cardf);
+                        }
+                        if (w16 == 0) {
+                            const bool ev = c_run[u] >= 0;
+                            const bool hit_burst =
+                                !ev && (long long)sh.sched_count + c_card[u] > *a.global_burst;
+                            const bool hit_q_burst =
+                                !ev && (long long)a.q_sched[qq] + c_card[u] > a.perq_burst[qq];
+                            const bool gate_global = hit_burst || (!ev && rcap);
+                            cd.g = cand[u];
+                            cd.card = c_card[u];
+                            cd.level = c_lvl[u];
+                            cd.key = c_key[u];
+                            cd.pc = c_pc[u];
+                            cd.run = c_run[u];
+                            cd.ban = c_ban[u];
+                            cd.trow = c_trow[u];
+                            cd.cmask = cm;
+                            cd.hit_burst = hit_burst;
+                            cd.gate_global = gate_global;
+                            cd.gate_queue = (hit_q_burst || (!ev && qcap)) && !gate_global;
+                            cd.float_ok = ev || fok;
                         }
                     }
                 }
-                const QPick c{key, PL ? gang_size(a, cand) : 0.0f, q, cand};
-                if (qpick_less(c, best)) best = c;
-                any_has = true;
+                PROF_BEGIN(PS_WINDOW);
             }
-            if (EXT) a.okey[q] = key;
         }
-        const bool any_q = block_any(any_has);
-        const bool advanced = block_any(adv);
-        const bool hidden = EXT && block_any(hid);
-        best = block_qpick(best, redq);
 
-        if (tid == 0) {
-            sh.any_q = any_q;
-            sh.advanced = advanced;
-            sh.hidden = hidden;
-            sh.attempt = 0;
-            sh.gate_global = 0;
-            sh.gate_queue = 0;
-            sh.hit_burst = 0;
+        // --- the queue pick: one reduction of the keys and the flags ------------------
+        best = qpick_warp(best);
+        if (wl == 0) redq[warp] = best;
+        ARMADA_SYNC();
+        PROF_BEGIN(PS_PICK);
+        // --- the gate, on warp 0: the winner's record from its half-warp --------------
+        if (warp == 0) {
+            QPick b = wl < nwarps ? redq[wl] : QPick{ARMADA_INF, -ARMADA_INF, ARMADA_BIGI, 0, 0u, 0};
+            b = qpick_warp(b);
+            PROF_BEGIN(PS_GATE);
+            const bool any_q = (b.f & QF_ANY) != 0;
             if (any_q) {
-                const int qstar = best.q, g = best.g;
-                sh.qstar = qstar;
-                sh.g = g;
-                const int card = a.g_card[g];
-                const float cardf = (float)card;
-                sh.card = card;
-                sh.level = a.g_level[g];
-                sh.key = a.g_key[g];
-                sh.trow = HET && sh.key >= 0 ? a.key_type_row[sh.key] : 0;
-                sh.pc = a.g_pc[g];
-                const int run = a.g_run[g];
-                sh.run = run;
-                sh.is_ev = run >= 0;
-                sh.pinned = run >= 0 ? a.run_node[run] : -1;
-                bool round_cap = false, q_cap = false, float_ok = true;
-                for (int r = 0; r < R; ++r) {
-                    const float req = a.g_req[(long long)g * R + r];
-                    sh.req[r] = req;
-                    sh.req_node[r] = __fmul_rn(req, a.node_axes[r]);
-                    sh.req_tot[r] = __fmul_rn(req, cardf);
-                    sh.req_float[r] =
-                        __fmul_rn(__fmul_rn(req, __fsub_rn(1.0f, a.node_axes[r])), cardf);
-                    round_cap |= __fadd_rn(a.sched_res[r], sh.req_tot[r]) > a.round_cap[r];
-                    q_cap |= __fadd_rn(a.q_alloc_pc[((long long)qstar * a.C + sh.pc) * R + r],
-                                       sh.req_tot[r]) > a.pc_queue_cap[sh.pc * R + r];
-                    float_ok &= __fadd_rn(a.float_used[r], sh.req_float[r]) <=
-                                __fadd_rn(a.float_total[r], 1e-3f);
+                const Cand& cd = cands[b.slot];
+                if (wl < a.R) {
+                    sh.req[wl] = cd.req[wl];
+                    sh.req_node[wl] = cd.req_node[wl];
+                    sh.req_tot[wl] = cd.req_tot[wl];
+                    sh.req_float[wl] = cd.req_float[wl];
                 }
-                const bool ev = run >= 0;
-                const bool hit_burst = !ev && (long long)sh.sched_count + card > *a.global_burst;
-                const bool hit_round_cap = !ev && round_cap;
-                const bool hit_q_burst = !ev && (long long)a.q_sched[qstar] + card > a.perq_burst[qstar];
-                const bool hit_q_cap = !ev && q_cap;
-                const bool gate_global = hit_burst || hit_round_cap;
-                const bool gate_queue = (hit_q_burst || hit_q_cap) && !gate_global;
-                sh.hit_burst = hit_burst;
-                sh.gate_global = gate_global;
-                sh.gate_queue = gate_queue;
-                sh.attempt = !gate_global && !gate_queue;
-                sh.float_ok = ev || float_ok;
-                // cacheable: an unbanned, keyed, type-insensitive single
-                sh.cacheable = a.CS > 0 && !ev && card == 1 && sh.key >= 0 &&
-                               a.g_ban_row[g] == 0 && sh.trow == 0;
+                if (wl == 0) {
+                    const int run = cd.run;
+                    sh.qstar = b.q;
+                    sh.g = b.g;
+                    sh.card = cd.card;
+                    sh.level = cd.level;
+                    sh.key = cd.key;
+                    sh.trow = cd.trow;
+                    sh.pc = cd.pc;
+                    sh.run = run;
+                    sh.ban = cd.ban;
+                    sh.cmask = cd.cmask;
+                    sh.is_ev = run >= 0;
+                    sh.pinned = run >= 0 ? a.run_node[run] : -1;
+                    sh.hit_burst = cd.hit_burst;
+                    sh.gate_global = cd.gate_global;
+                    sh.gate_queue = cd.gate_queue;
+                    sh.attempt = !cd.gate_global && !cd.gate_queue;
+                    sh.float_ok = cd.float_ok;
+                    // cacheable: an unbanned, keyed, type-insensitive single
+                    sh.cacheable = a.CS > 0 && run < 0 && cd.card == 1 && cd.key >= 0 && cd.ban == 0 &&
+                                   cd.trow == 0;
+                }
             }
-            sh.fit_feasible = 0;
+            if (wl == 0) {
+                sh.any_q = any_q;
+                sh.advanced = (b.f & QF_ADV) != 0;
+                sh.hidden = EXT && (b.f & QF_HID) != 0;
+                if (!any_q) {
+                    sh.attempt = 0;
+                    sh.gate_global = 0;
+                    sh.gate_queue = 0;
+                    sh.hit_burst = 0;
+                }
+                sh.fit_feasible = 0;
+            }
         }
-        __syncthreads();
+        ARMADA_SYNC();
+        PROF_BEGIN(PS_NODE);
 
         // --- fit and node selection -------------------------------------------------
+        int s_node = -1;  // a single's node (N: none), in warp 0's registers for its commit
         if (sh.attempt) {
+            const int R = a.R, N = a.N, W = a.W, T = a.T;
+            const long long NR = (long long)N * R;
+            const int n0 = sh.n0, n1 = sh.n1;
+            int* const nodes_w = sh.nodes_w;
+            int* const counts_w = sh.counts_w;
             const int card = sh.card, level = sh.level;
             if (sh.is_ev) {
+                // the evictee's pinned node: warp 0 alone, which commits
                 if (tid == 0) {
                     const int pin = min(max(sh.pinned, 0), N - 1);
                     const float* row = a.alloc + (long long)level * NR + (long long)pin * R;
@@ -1772,76 +2350,77 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : BK ? BK_BLOCK : ARMADA_BLOCK
                     counts_w[0] = fits ? 1 : 0;
                     sh.fit_feasible = fits;
                 }
-                __syncthreads();
             } else if (sh.cacheable) {
                 cached_pick<CL>(a, sh, nodes_w, counts_w, red, cx);
             } else {
                 const int key = sh.key;
-                const u8* ban = a.ban_mask + (long long)a.g_ban_row[sh.g] * N;
+                const u8* ban = a.ban_mask + (long long)sh.ban * N;
                 // the node-type bias row of the gang's key: one f32 add after
                 // the packing-score chain (TR > 1 only)
                 const float* bias = HET ? a.type_bias + (long long)sh.trow * a.T : nullptr;
-                const float* al0 = a.alloc;
-                const float* all = a.alloc + (long long)level * NR;
-                ArgMin bc{ARMADA_INF, ARMADA_BIGI, 0}, bl{ARMADA_INF, ARMADA_BIGI, 0};
-                long long sc = 0, sl = 0;
-                for (int n = n0 + tid; n < n1; n += blockDim.x) {
-                    const bool ok = (key < 0 || a.compat[(long long)key * a.T + a.node_type[n]]) &&
-                                    a.node_ok[n] && !ban[n];
-                    int cc = 0, cl = 0;
-                    float s0 = ARMADA_INF, s1 = ARMADA_INF;
-                    if (ok) {
-                        cc = min(member_capacity(al0 + (long long)n * R, sh.req_node, R), card);
-                        cl = min(member_capacity(all + (long long)n * R, sh.req_node, R), card);
-                        s0 = packing_score(al0 + (long long)n * R, a.inv_scale, R);
-                        s1 = packing_score(all + (long long)n * R, a.inv_scale, R);
-                        if (bias) {
-                            const float b = bias[a.node_type[n]];
-                            s0 = __fadd_rn(s0, b);
-                            s1 = __fadd_rn(s1, b);
+                const CompatRow cr = compat_row(a, key, sh.cmask);
+                NodePart p = npart_empty();
+                if (card == 1) {
+                    p = sh.row4 ? single_pass<HET, true>(a, sh, cr, ban, bias, level, n0, n1)
+                                : single_pass<HET, false>(a, sh, cr, ban, bias, level, n0, n1);
+                } else {
+                    const float* al0 = a.alloc;
+                    const float* all = a.alloc + (long long)level * NR;
+                    for (int n = n0 + tid; n < n1; n += blockDim.x) {
+                        const int ty = a.node_type[n];
+                        const bool ok = cr.admits(ty) && a.node_ok[n] && !ban[n];
+                        int cc = 0, cl = 0;
+                        float s0 = ARMADA_INF, s1 = ARMADA_INF;
+                        if (ok) {
+                            cc = min(member_capacity(al0 + (long long)n * R, sh.req_node, R), card);
+                            cl = min(member_capacity(all + (long long)n * R, sh.req_node, R), card);
+                            s0 = packing_score(al0 + (long long)n * R, sh.inv_scale, R);
+                            s1 = packing_score(all + (long long)n * R, sh.inv_scale, R);
+                            if (bias) {
+                                const float b = bias[ty];
+                                s0 = __fadd_rn(s0, b);
+                                s1 = __fadd_rn(s1, b);
+                            }
                         }
-                    }
-                    sc += cc;
-                    sl += cl;
-                    if (cc >= 1) bc = argmin_pick(bc, ArgMin{s0, n, 0});
-                    if (cl >= 1) bl = argmin_pick(bl, ArgMin{s1, n, 0});
-                    if (card > 1) {
+                        p.sc += cc;
+                        p.sl += cl;
+                        if (cc >= 1) p.c = argmin_pick(p.c, ArgMin{s0, n, 0});
+                        if (cl >= 1) p.l = argmin_pick(p.l, ArgMin{s1, n, 0});
                         a.cap_c[n] = cc;
                         a.cap_l[n] = cl;
                         a.score_c[n] = s0;
                         a.score_l[n] = s1;
                     }
                 }
-                sc = block_sum_ll(sc, redl);
-                sl = block_sum_ll(sl, redl);
-                bc = block_argmin(bc, red);
-                bl = block_argmin(bl, red);
-                if constexpr (CL) {
-                    // the pass's four reductions in one exchange
-                    ArgMin m2[2] = {bc, bl};
-                    long long s2[2] = {sc, sl};
-                    cluster_combine<2, 2, 0>(cx, m2, s2, nullptr);
-                    bc = m2[0];
-                    bl = m2[1];
-                    sc = s2[0];
-                    sl = s2[1];
-                }
-                const bool use_clean = sc >= card;
-                const long long ssel = use_clean ? sc : sl;
+                // the pass's four reductions in one: warps, then warp 0 over
+                // the warps (and over the cluster's CTAs)
+                p = npart_warp(p);
+                if (wl == 0) npart[warp] = p;
+                ARMADA_SYNC();
+                if (warp == 0) p = npart_warp(wl < nwarps ? npart[wl] : npart_empty());
+                if constexpr (CL) cluster_part(cx, p);
                 if (card == 1) {
-                    if (tid == 0) {
-                        const ArgMin b = use_clean ? bc : bl;
+                    if (warp == 0) {
+                        const bool use_clean = p.sc >= card;
+                        const long long ssel = use_clean ? p.sc : p.sl;
+                        const ArgMin b = use_clean ? p.c : p.l;
                         const bool found = ssel >= 1;
-                        for (int w = 0; w < W; ++w) {
-                            nodes_w[w] = N;
-                            counts_w[w] = 0;
+                        s_node = found ? b.i : N;
+                        for (int w = wl; w < W; w += 32) {
+                            nodes_w[w] = w == 0 ? s_node : N;
+                            counts_w[w] = w == 0 && found ? 1 : 0;
                         }
-                        nodes_w[0] = found ? b.i : N;
-                        counts_w[0] = found ? 1 : 0;
-                        sh.fit_feasible = ssel >= card;
+                        if (wl == 0) sh.fit_feasible = ssel >= card;
                     }
-                    __syncthreads();
                 } else {
+                    if (tid == 0) {
+                        sh.psc = p.sc;
+                        sh.psl = p.sl;
+                    }
+                    ARMADA_SYNC();
+                    const long long sc = sh.psc, sl = sh.psl;
+                    const bool use_clean = sc >= card;
+                    const long long ssel = use_clean ? sc : sl;
                     // Gang spread: masked nodes in (score, index) order, each
                     // filled to its capacity, until the gang is covered -- the
                     // prefix of the reference's stable argsort, W rounds of a
@@ -1856,7 +2435,7 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : BK ? BK_BLOCK : ARMADA_BLOCK
                             nodes_w[w] = N;
                             counts_w[w] = 0;
                         }
-                    __syncthreads();
+                    ARMADA_SYNC();
                     for (int w = 0; w < W; ++w) {
                         ArgMin b{ARMADA_INF, ARMADA_BIGI, 0};
                         for (int n = n0 + tid; n < n1; n += blockDim.x) {
@@ -1879,101 +2458,149 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : BK ? BK_BLOCK : ARMADA_BLOCK
                         pi = b.i;
                     }
                     if (tid == 0) sh.fit_feasible = ssel >= card;
-                    __syncthreads();
+                    ARMADA_SYNC();
                 }
             }
         }
 
-        // --- commit ---------------------------------------------------------------------
-        if (tid == 0) {
+        // --- commit, on warp 0: its lanes take the spread's (entry, level,
+        // resource) elements and the resources; lane 0 the scalars ----------------------
+        PROF_BEGIN(PS_COMMIT);
+        if (warp == 0) {
+            __syncwarp();
+            const int R = a.R, N = a.N, W = a.W;
+            const long long NR = (long long)N * R;
+            const bool market = sh.market;
+            const int* const nodes_w = sh.nodes_w;
+            const int* const counts_w = sh.counts_w;
             const bool attempt = sh.attempt;
             const bool placed = attempt && sh.fit_feasible && sh.float_ok;
             const int qstar = sh.qstar, g = sh.g, card = sh.card, pc = sh.pc;
             const bool ev = sh.is_ev;
+            const int cur = sh.cursor;
+            const int level = sh.level;
+            __syncwarp();  // every lane has read the step's scalars before lane 0 writes
             if (placed) {
                 const int lo = ev ? 1 : 0;
-                for (int w = 0; w < W; ++w) {
-                    const int node = nodes_w[w];
+                const int nl = min(level, a.P1 - 1) - lo + 1;
+                // a single's node from the registers of its pass; else the rows
+                const int ne = s_node >= 0 ? 1 : W;
+                for (int i = wl; i < ne * nl * R && nl > 0; i += 32) {
+                    const int w = i / (nl * R), l = lo + (i / R) % nl, r = i % R;
+                    const int node = s_node >= 0 ? s_node : nodes_w[w];
                     if (node >= N) continue;
-                    const float cnt = (float)counts_w[w];
-                    for (int l = lo; l <= sh.level && l < a.P1; ++l)
-                        for (int r = 0; r < R; ++r) {
-                            float* p = a.alloc + (long long)l * NR + (long long)node * R + r;
-                            *p = __fsub_rn(*p, __fmul_rn(cnt, sh.req_node[r]));
-                        }
+                    const float cnt = s_node >= 0 ? 1.0f : (float)counts_w[w];
+                    float* p = a.alloc + (long long)l * NR + (long long)node * R + r;
+                    *p = __fsub_rn(*p, __fmul_rn(cnt, sh.req_node[r]));
                 }
-                for (int r = 0; r < R; ++r) {
-                    a.q_alloc[qstar * R + r] = __fadd_rn(a.q_alloc[qstar * R + r], sh.req_tot[r]);
+                float share = -ARMADA_INF;
+                if (wl < R) {
+                    const int r = wl;
+                    const float rt = sh.req_tot[r];
+                    a.q_alloc[qstar * R + r] = __fadd_rn(a.q_alloc[qstar * R + r], rt);
                     float* pp = a.q_alloc_pc + ((long long)qstar * a.C + pc) * R + r;
-                    *pp = __fadd_rn(*pp, sh.req_tot[r]);
-                    a.spot_res[r] = __fadd_rn(a.spot_res[r], sh.req_tot[r]);
-                }
-                if (!ev) {
-                    sh.sched_count += card;
-                    for (int r = 0; r < R; ++r) {
-                        a.sched_res[r] = __fadd_rn(a.sched_res[r], sh.req_tot[r]);
+                    *pp = __fadd_rn(*pp, rt);
+                    const float sr = __fadd_rn(a.spot_res[r], rt);
+                    a.spot_res[r] = sr;
+                    if (!ev) {
+                        a.sched_res[r] = __fadd_rn(a.sched_res[r], rt);
                         a.float_used[r] = __fadd_rn(a.float_used[r], sh.req_float[r]);
                     }
-                    a.q_sched[qstar] += card;
-                } else {
-                    a.run_rescheduled[sh.run] = 1;
-                }
-                if (market && *a.spot_price < 0.0f) {
-                    float share = -ARMADA_INF;
-                    for (int r = 0; r < R; ++r) {
+                    if (market) {
                         const float t = a.total_pool[r];
-                        float f = t > 0.0f ? __fdiv_rn(a.spot_res[r], fmaxf(t, 1e-9f)) : 0.0f;
-                        f = __fmul_rn(f, a.drf_mult[r]);
-                        share = fmaxf(share, f);
+                        const float f = t > 0.0f ? __fdiv_rn(sr, fmaxf(t, 1e-9f)) : 0.0f;
+                        share = __fmul_rn(f, a.drf_mult[r]);
                     }
-                    if (share > *a.spot_cutoff) *a.spot_price = a.g_spot_price[g];
                 }
-                if (!ev) {
-                    const int cur = sh.cursor;
-                    if (cur < a.S) {
-                        a.slot_gang[cur] = g;
-                        for (int w = 0; w < W; ++w) {
-                            a.slot_nodes[(long long)cur * W + w] = nodes_w[w];
-                            a.slot_counts[(long long)cur * W + w] = counts_w[w];
-                        }
+                if (market)
+                    for (int off = 16; off > 0; off >>= 1)
+                        share = fmaxf(share, __shfl_xor_sync(FULL_MASK, share, off));
+                if (!ev && cur < a.S)
+                    for (int w = wl; w < W; w += 32) {
+                        a.slot_nodes[(long long)cur * W + w] =
+                            s_node >= 0 ? (w == 0 ? s_node : N) : nodes_w[w];
+                        a.slot_counts[(long long)cur * W + w] =
+                            s_node >= 0 ? (w == 0 ? 1 : 0) : counts_w[w];
                     }
-                    sh.cursor = cur + 1;
+                if (wl == 0) {
+                    if (!ev) {
+                        sh.sched_count += card;
+                        a.q_sched[qstar] += card;
+                        if (cur < a.S) a.slot_gang[cur] = g;
+                        sh.cursor = cur + 1;
+                    } else {
+                        a.run_rescheduled[sh.run] = 1;
+                    }
+                    if (market && *a.spot_price < 0.0f && share > *a.spot_cutoff)
+                        *a.spot_price = a.g_spot_price[g];
+                    a.g_state[g] = 1;
                 }
-                a.g_state[g] = 1;
-            } else if (attempt) {
+            } else if (attempt && wl == 0) {
                 a.g_state[g] = 2;
                 if (card == 1 && sh.key >= 0) a.key_bad[sh.key] = 1;
             }
-            if (sh.gate_queue) a.q_killed[qstar] = 1;
-            if (sh.gate_global) {
-                sh.new_blocked = 1;
-                if (sh.termination == 0) sh.termination = sh.hit_burst ? 1 : 2;
+            if (wl == 0) {
+                if (sh.gate_queue) a.q_killed[qstar] = 1;
+                if (sh.gate_global) {
+                    sh.new_blocked = 1;
+                    if (sh.termination == 0) sh.termination = sh.hit_burst ? 1 : 2;
+                }
+                sh.done = !sh.any_q && !sh.advanced;
+                sh.placed = placed;
+                sh.n_ext = 0;
+                if (!EXT && !BK) {
+                    sh.iterations += 1;
+                    sh.kiters += 1;
+                }
             }
-            sh.done = !sh.any_q && !sh.advanced;
-            sh.placed = placed;
-            sh.n_ext = 0;
         }
-        __syncthreads();
+        ARMADA_SYNC();
+        PROF_BEGIN(PS_AFTER);
         // --- the multi-commit extension (K10) ---------------------------------------
-        if (EXT && sh.placed && !market && !sh.hidden) {
+        if (EXT && sh.placed && !sh.market && !sh.hidden) {
             extension<typename std::remove_reference<decltype(ext)>::type, CL>(a, sh, ext, cx);
-            __syncthreads();
+            ARMADA_SYNC();
         }
         // --- K11: the fit cache's upkeep, or the pick chain -------------------------
         if (a.CS > 0 && sh.placed)
-            cache_upkeep(a, nodes_w, EXT ? &ext.node[0] : nullptr, EXT ? sh.n_ext : 0, n0, n1);
+            cache_upkeep(a, sh.nodes_w, EXT ? &ext.node[0] : nullptr, EXT ? sh.n_ext : 0, sh.n0, sh.n1);
         if (BK && sh.placed) {
-            pick_chain<HET, typename std::remove_reference<decltype(ch)>::type, CL>(a, sh, ch, redq, red,
-                                                                                    redl, cx);
-            __syncthreads();
+            pick_chain<HET, typename std::remove_reference<decltype(ch)>::type, CL>(a, sh, ch, redq, npart,
+                                                                                    cx);
+            ARMADA_SYNC();
         }
-        if (tid == 0) {
-            sh.iterations += 1 + sh.n_ext;
-            sh.kiters += 1;
+        PROF_BEGIN(PS_END);
+        if (EXT || BK) {
+            if (tid == 0) {
+                sh.iterations += 1 + sh.n_ext;
+                sh.kiters += 1;
+            }
+            ARMADA_SYNC();
         }
-        __syncthreads();
+    }
+#ifdef ROUND_STEP_PROFILE
+    PROF_BEGIN(PS_END);
+    if (prof_thread()) {
+        prof_acc[PS_LOOP_NS] = prof_ns() - prof_ns0;
+        prof_acc[PS_LOOP_CYCLES] = clock64() - prof_c0;
+        for (int i = 0; i < PS_SLOTS; ++i) round_prof_out[i] = prof_acc[i];
+    }
+#endif
+    if (hotq) {
+        for (long long i = tid; i < (long long)a.Q * a.R; i += blockDim.x) sh.out_q_alloc[i] = a.q_alloc[i];
+        for (int q = tid; q < a.Q; q += blockDim.x) {
+            sh.out_q_sched[q] = a.q_sched[q];
+            sh.out_q_head[q] = a.q_head[q];
+            sh.out_q_killed[q] = a.q_killed[q];
+        }
+    }
+    for (int r = tid; r < a.R; r += blockDim.x) {
+        sh.out_sched_res[r] = sh.h_sched_res[r];
+        sh.out_float_used[r] = sh.h_float_used[r];
+        sh.out_spot_res[r] = sh.h_spot_res[r];
     }
     if (tid == 0) {
+        *sh.out_spot_price = sh.h_spot_price;
         int term = sh.termination;
         if (!sh.done && sh.iterations >= a.max_iter) term = 3;
         a.scal[SC_NSLOTS * a.P] = sh.cursor;
@@ -1986,21 +2613,53 @@ __global__ void __launch_bounds__(EXT ? EXT_BLOCK : BK ? BK_BLOCK : ARMADA_BLOCK
         a.scal[SC_CMISSES * a.P] = sh.nmisses;
     }
     // no CTA leaves while another may still read its shared memory
-    if constexpr (CL) cg::this_cluster().sync();
+    if constexpr (CL) {
+        ARMADA_BAR_HOOK();
+        cg::this_cluster().sync();
+    }
 }
 
 // The placement loop's launchers: the narrow instantiations (round.cu), the
 // wide ones (round_wide.cu) and K-K's cluster (round_cluster.cu).  Each
 // returns the launch's cudaError_t.
-typedef void (*PlaceLoop)(RoundArgs, int*, int*);
+typedef void (*PlaceLoop)(RoundArgs, int*, int*, int);
+
+// The dynamic shared memory that holds the loop's per-queue state
+// (q_alloc [Q, R] f32, q_sched and q_head i32, q_killed u8) beside kernel
+// k's static shared memory, after raising k's limit to it; 0 when it does
+// not fit (the state then stays in global memory).  *err: a failed query.
+static inline int hot_bytes(const RoundArgs& a, const void* k, int* err) {
+    *err = 0;
+    const long long need = (long long)a.Q * (4LL * a.R + 9);
+    cudaFuncAttributes fa;
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaFuncGetAttributes(&fa, k);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) {
+        *err = (int)e;
+        return 0;
+    }
+    if (need > (long long)optin - (long long)fa.sharedSizeBytes) return 0;
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
+    if (e != cudaSuccess) *err = (int)e;
+    return (int)need;
+}
 int launch_place_loop_wide(const RoundArgs& a, dim3 grid, int* nodes_w, int* counts_w,
                            cudaStream_t stream);
 int launch_place_loop_cluster(const RoundArgs& a, int S, int* nodes_w, int* counts_w,
                               cudaStream_t stream);
 int place_loop_cluster_max(const RoundArgs& a, int S);
+#ifdef ROUND_STEP_PROFILE
+static int round_prof_fetch(long long* out) {
+    return (int)cudaMemcpyFromSymbol(out, round_prof_out, sizeof(round_prof_out));
+}
+int round_prof_fetch_wide(long long* out);
+int round_prof_fetch_cluster(long long* out);
+#endif
 
 // The loop's block size at a loop shape.
 static inline int place_loop_block(const RoundArgs& a) {
-    return a.commit_k > 1 ? EXT_BLOCK : a.batch_k > 1 ? BK_BLOCK : ARMADA_BLOCK;
+    return a.commit_k > 1 ? EXT_BLOCK : a.batch_k > 1 ? BK_BLOCK : a.TR > 1 ? LOOP_BLOCK_HET : LOOP_BLOCK;
 }
 

@@ -16,6 +16,13 @@ int launch_place_loop_wide(const RoundArgs& a, dim3 grid, int* nodes_w, int* cou
     else
         k = het ? place_loop_kernel<false, false, true, true, true, false>
                 : place_loop_kernel<false, false, false, true, true, false>;
-    ARMADA_LAUNCH(k, grid, place_loop_block(a), stream)(a, nodes_w, counts_w);
+    int err = 0;
+    const int hot = hot_bytes(a, (const void*)k, &err);
+    if (err) return err;
+    ARMADA_LAUNCH_SMEM(k, grid, place_loop_block(a), hot, stream)(a, nodes_w, counts_w, hot > 0);
     return (int)cudaGetLastError();
 }
+
+#ifdef ROUND_STEP_PROFILE
+int round_prof_fetch_wide(long long* out) { return round_prof_fetch(out); }
+#endif

@@ -8,19 +8,24 @@ to MAX_COMMIT_K and MAX_BATCH_K the extension's and the chain's tables live
 in shared memory; wider ones run the wide instantiations, whose tables live
 in scratch allocated here by the width (`wide_need`).
 
-K-K (`mesh=` a parallel.mesh.Mesh of S node shards, S >= 2): the solo round
-whose placement loop is one cluster of S CTAs, each reducing its node
-pass over N / S nodes; its state buffers hold S replicas, replica 0 the
-result.  The loop shapes of the narrow solo loop run sharded; the wide ones
-raise (ROADMAP Queue 2).
+The placement loop runs as one thread-block cluster of S CTAs a lane, each
+reducing its node passes over N / S nodes; the state buffers then hold S
+replicas of the lanes, replica 0 the result.  `choose_cluster_size` is the
+one owner of S: solo and stacked rounds take the S it picks from N, the
+lanes, the loop shape and the card's cluster capacity (1, the single-CTA
+form, for the wide instantiations and wherever no cluster fits);
+parallel/serving.py clamps the serving mesh with it.  K-K (`mesh=` a
+parallel.mesh.Mesh of S node shards, S >= 2) runs the solo round at the
+mesh's S; the wide shapes raise there (ROADMAP Queue 2).
 
 On the card the round is a sequence of launches on the current stream with
 no host synchronisation: the prologue scatter and suffix sum, the fair
-shares (kernel K-A), the eviction gate and move, gang activation, the
-persistent single-block placement loop, the key sweep, phase B and the
-unbind.  The stacked round (K-D) is the same sequence with a lane axis: one
-block per lane for the persistent kernels.  CPU problems run the plain
-versions (models/fair_scheduler.py)."""
+shares (kernel K-A), the eviction gate and move, gang activation (and,
+for a cluster, the replicas' copy), the persistent placement loop, the key
+sweep, phase B and the unbind.  The stacked round (K-D) is the same
+sequence with a lane axis: one block (or cluster) per lane for the
+persistent kernels.  CPU problems run the plain versions
+(models/fair_scheduler.py)."""
 
 from __future__ import annotations
 
@@ -39,6 +44,9 @@ MAX_FIXPOINT_ITERS = 128
 # shared memory; wider ones run the wide instantiations
 MAX_COMMIT_K = 16
 MAX_BATCH_K = 16
+# csrc/round.cuh MAX_CLUSTER: the widest cluster of the placement loop (16
+# CTAs, a non-portable cluster size on Hopper)
+MAX_CLUSTER = 16
 
 _F32 = ("node_total", "run_req", "g_req", "g_price", "g_spot_price", "q_weight", "q_cds",
         "q_penalty", "total_pool", "drf_mult", "inv_scale", "round_cap", "pc_queue_cap",
@@ -89,6 +97,60 @@ def cache_stats() -> list:
     return [(int(scal[6, i]), int(scal[7, i])) for i in range(scal.shape[1])]
 
 
+# The owner's decisions by shape (choose_cluster_size with the card's
+# capacity), and the last launch's cluster size.
+_CLUSTER: dict = {}
+
+
+def choose_cluster_size(N, lanes: int = 1, *, commit_k: int = 1, batch_k: int = 1,
+                        prefer_large: bool = False, het: bool = False, cache_slots: int = 0,
+                        device="cuda", capacity=None, sizes=None) -> int:
+    """The cluster size S of the placement loop for a round of `lanes`
+    lanes over N nodes at this loop shape: the one owner of the decision.
+    The largest S in `sizes` (default MAX_CLUSTER down to 2) such that S
+    divides N, N / S is a multiple of the fit cache's block (block_size(N))
+    when the cache is armed, the shape has a cluster instantiation (the wide
+    ones do not) and `lanes` clusters of S fit on the card at once
+    (capacity(S) >= lanes); else 1, the single-CTA form, which the CPU
+    always takes.  `capacity(S)` defaults to the card's
+    (`cluster_capacity` at this loop shape); N None drops the two node
+    rules (the serving mesh pads N to its S).  With the card's capacity
+    the answer is cached by shape."""
+    if torch.device(device).type != "cuda":
+        return 1
+    if commit_k > MAX_COMMIT_K or batch_k > MAX_BATCH_K:
+        return 1
+    key = None
+    if capacity is None:
+        key = (N, lanes, commit_k > 1, batch_k > 1, bool(prefer_large), bool(het),
+               cache_slots > 0, None if sizes is None else tuple(sizes))
+        hit = _CLUSTER.get(key)
+        if hit is not None:
+            return hit
+
+        def capacity(s):
+            return cluster_capacity(s, commit_k=commit_k, prefer_large=prefer_large,
+                                    batch_k=batch_k, het=het)
+    chosen = 1
+    for s in (range(MAX_CLUSTER, 1, -1) if sizes is None else sizes):
+        if not 2 <= s <= MAX_CLUSTER:
+            continue
+        if N is not None and (N % s or (cache_slots > 0 and (N // s) % block_size(N))):
+            continue
+        if capacity(s) >= lanes:
+            chosen = s
+            break
+    if key is not None:
+        _CLUSTER[key] = chosen
+    return chosen
+
+
+def last_cluster_size() -> int:
+    """The cluster size S the last round launched ran at (1: one CTA a
+    lane)."""
+    return _LAST.get("shards", 1)
+
+
 def _check_problem(p, lanes: int) -> None:
     for name in _F32:
         require_cuda(getattr(p, name), name, torch.float32)
@@ -126,7 +188,17 @@ def schedule_round(p, *, num_levels: int, max_slots: int, slot_width: int, max_i
                          "shards (parallel/mesh.py shard_problem pads it)")
     if not p.g_req.is_cuda:
         return schedule_round_plain(p, **kw)
-    return _launch(p, 0, shards=shards, **kw)
+    if mesh is None:
+        shards = _owner_size(p, 1, kw)
+    return _launch(p, 0, shards=shards, mesh=mesh is not None and shards > 1, **kw)
+
+
+def _owner_size(p, lanes: int, kw: dict) -> int:
+    o = 1 if p.q_weight.dim() == 2 else 0
+    return choose_cluster_size(
+        int(p.node_total.shape[o]), lanes, commit_k=kw["commit_k"], batch_k=kw["batch_k"],
+        prefer_large=kw["prefer_large"], het=int(p.type_bias.shape[o]) > 1,
+        cache_slots=kw["cache_slots"], device=p.g_req.device)
 
 
 def schedule_round_stacked(p, *, num_levels: int, max_slots: int, slot_width: int,
@@ -143,7 +215,8 @@ def schedule_round_stacked(p, *, num_levels: int, max_slots: int, slot_width: in
               cache_slots=cache_slots, batch_k=batch_k, unroll=unroll)
     if not p.g_req.is_cuda:
         return schedule_round_stacked_plain(p, **kw)
-    return _launch(p, int(p.g_req.shape[0]), **kw)
+    lanes = int(p.g_req.shape[0])
+    return _launch(p, lanes, shards=_owner_size(p, lanes, kw), **kw)
 
 
 def wide_need(commit_k: int, batch_k: int) -> tuple:
@@ -180,9 +253,10 @@ def cluster_capacity(shards: int, *, commit_k: int = 1, prefer_large: bool = Fal
 
 def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
             max_iterations: int, prefer_large: bool, commit_k: int, cache_slots: int = 0,
-            batch_k: int = 1, unroll: int = 1, shards: int = 1):
+            batch_k: int = 1, unroll: int = 1, shards: int = 1, mesh: bool = False):
     """The launch sequence; `lanes` = 0 for a solo round (no lane axis),
-    else P; `shards` > 1 for K-K (solo)."""
+    else P; `shards` > 1 runs the placement loop as clusters of that many
+    CTAs (`mesh`: K-K's, at a mesh's S; else the owner's choice)."""
     from armada_tpu_torch.models.fair_scheduler import RoundResult
 
     if int(commit_k) < 1:
@@ -199,8 +273,6 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
                          f">= 0 and >= 1")
     wide = commit_k > MAX_COMMIT_K or batch_k > MAX_BATCH_K
     if shards > 1:
-        if lanes:
-            raise ValueError("sharded round: a solo problem (pool stacking is off under the mesh)")
         if wide:
             raise ValueError(
                 f"sharded round: commit_k={commit_k} / batch_k={batch_k} run the wide "
@@ -211,8 +283,8 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
 
     dev = p.g_req.device
     o = 1 if lanes else 0
-    # state buffers: one per lane (K-D), one per replica (K-K), or one
-    lead = (lanes,) if lanes else (shards,) if shards > 1 else ()
+    # state buffers: one per lane (K-D) of each replica (a cluster), or one
+    lead = ((shards,) if shards > 1 else ()) + ((lanes,) if lanes else ())
     P = max(lanes, 1)
     N, R = (int(x) for x in p.node_total.shape[o:])
     G = int(p.g_req.shape[o])
@@ -235,8 +307,8 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         raise ValueError(
             f"sharded round: the fit cache's {block_size(N)}-node blocks must tile each shard of "
             f"{N // shards} nodes (ROADMAP Queue 2)")
-    if shards > 1 and cluster_capacity(shards, commit_k=commit_k, prefer_large=prefer_large,
-                                       batch_k=batch_k, het=TR > 1) < 1:
+    if mesh and cluster_capacity(shards, commit_k=commit_k, prefer_large=prefer_large,
+                                 batch_k=batch_k, het=TR > 1) < 1:
         raise RuntimeError(f"sharded round: the card cannot launch a cluster of {shards} CTAs "
                            "of the round's loop (cudaOccupancyMaxActiveClusters is 0)")
 
@@ -252,7 +324,7 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         float_used=zeros((R,), f32),
         sched_res=zeros((R,), f32),
         spot_res=zeros((R,), f32),
-        spot_price=torch.zeros((max(P, shards),), dtype=f32, device=dev),
+        spot_price=torch.zeros((P * shards,), dtype=f32, device=dev),
         run_evicted=zeros((RJ,), b),
         run_rescheduled=zeros((RJ,), b),
         pending=zeros((RJ,), b),
@@ -275,7 +347,7 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         okey=zeros((Q,), f32),
         q_nskip=zeros((Q,), i32),
         # [8, P]: slot k of every lane is the contiguous row scal[k]; the
-        # sharded round's replicas each hold their own [8, 1]
+        # cluster's replicas each hold their own [8, P]
         scal=torch.zeros((shards * 8, P), dtype=i32, device=dev),
     )
     # the fit cache's tables (empty slots: key -1, block minima +INF) and
@@ -328,10 +400,9 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
         check(
             lib.armada_round_sharded_main(ctypes.byref(args), shards, nodes_w.data_ptr(),
                                           counts_w.data_ptr(), MAX_FIXPOINT_ITERS, stream),
-            "sharded round kernels",
+            f"round kernels (clusters of {shards} CTAs)",
         )
-        kernels.LAUNCHES["round_sharded"] += 1
-        # replica 0 is the round's state (spot_price is [S], scal [8 S, 1])
+        # replica 0 is the round's state (spot_price is [S P], scal [8 S, P])
         st = {k: v if k in ("spot_price", "scal") else v[0] for k, v in st.items()}
         st["scal"] = st["scal"][:8]
     else:
@@ -340,8 +411,14 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
                                   MAX_FIXPOINT_ITERS, stream),
             "round kernels",
         )
+    if mesh:
+        kernels.LAUNCHES["round_sharded"] += 1
+    else:
         kernels.LAUNCHES["round_stacked" if lanes else "round"] += 1
+        if shards > 1:
+            kernels.LAUNCHES["round_clustered"] += 1
     _LAST["scal"] = st["scal"]
+    _LAST["shards"] = shards
     if commit_k > 1:
         kernels.LAUNCHES["round_multi_commit"] += 1
     if CS > 0:
@@ -349,7 +426,7 @@ def _launch(p, lanes: int, *, num_levels: int, max_slots: int, slot_width: int,
     if batch_k > 1:
         kernels.LAUNCHES["round_batch_k"] += 1
     scal = st["scal"] if lanes else st["scal"][:, 0]
-    spot = st["spot_price"] if lanes else st["spot_price"][0]
+    spot = st["spot_price"][:P] if lanes else st["spot_price"][0]
     return RoundResult(
         g_state=st["g_state"],
         slot_gang=st["slot_gang"],

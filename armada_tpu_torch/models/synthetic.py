@@ -356,6 +356,39 @@ def synthetic_problem(
     return problem, meta
 
 
+def adversarial_windows(p):
+    """`p` (a synthetic problem, or any with its fields) with queue windows
+    that stress the placement loop's 16-entry cursor window: a new key no
+    node type admits (its first single fails and marks the key bad; the
+    entries after it are skipped), then by queue q: the first 20 entries
+    of that key (a whole window skippable with gangs left behind it), every
+    third entry of it (bad keys in mid-window), the queue cut to 5-15
+    entries (shorter than the window), the queue cut to 17-23 entries with
+    bad entries at 3-6 (windows that cross q_len), or untouched, by q % 5.
+    Cut entries stay valid gangs that no window reaches."""
+    K, T = p.compat.shape
+    g_key = np.array(p.g_key, copy=True)
+    q_len = np.array(p.q_len, copy=True)
+    for q in range(q_len.shape[0]):
+        s, n = int(p.q_start[q]), int(p.q_len[q])
+        gangs = np.asarray(p.gq_gang[s:s + n])
+        kind = q % 5
+        if kind == 0:
+            g_key[gangs[:max(0, min(n - 1, 20))]] = K
+        elif kind == 1:
+            g_key[gangs[1::3]] = K
+        elif kind == 2:
+            q_len[q] = min(n, 5 + q % 11)
+        elif kind == 3:
+            q_len[q] = min(n, 17 + q % 7)
+            g_key[gangs[3:7]] = K
+    none = np.zeros((1, T), bool)
+    return p._replace(
+        g_key=g_key, q_len=q_len, compat=np.concatenate([np.asarray(p.compat), none]),
+        compat_pre_type=np.concatenate([np.asarray(p.compat_pre_type), none]),
+        key_type_row=np.concatenate([np.asarray(p.key_type_row), np.zeros(1, np.int32)]))
+
+
 def variety_world(seed: int, *, num_nodes: int = 200, num_jobs: int = 600, num_queues: int = 6,
                   num_running: int = 120, gangs: int = 20, max_card: int = 12,
                   market: bool = False, shape_bucket: int = 32):

@@ -36,16 +36,19 @@ import torch
 _log = logging.getLogger(__name__)
 
 
-def _cluster_limit(n: int, device: torch.device) -> int:
+def _cluster_limit(n: int, device: torch.device, capacity=None) -> int:
     """The largest shard count <= n, halving, whose K-K cluster the card
-    can launch (1 when none can); n itself off the card."""
+    can launch (1 when none can), as kernels/round.py's owner of the
+    cluster size decides it; n itself off the card."""
     if device.type != "cuda":
         return n
-    from armada_tpu_torch.kernels.round import cluster_capacity
+    from armada_tpu_torch.kernels.round import choose_cluster_size
 
-    while n >= 2 and cluster_capacity(n) < 1:
+    sizes = []
+    while n >= 2:
+        sizes.append(n)
         n = n // 2 if n % 2 == 0 else 1
-    return n
+    return choose_cluster_size(None, 1, device=device, capacity=capacity, sizes=sizes)
 
 
 class MeshServing:

@@ -170,6 +170,126 @@ def round_profile(fn) -> list:
     return sorted(rows, key=lambda r: -r[2])
 
 
+# The sections of a placement-loop step in the profile build (csrc/round.cuh
+# ROUND_STEP_PROFILE, enum PS_*), then the counters after them.
+STEP_SECTIONS = ("window", "keys", "pick", "gate", "node", "cluster", "commit", "after", "end")
+ROUND_SOURCES = ("round.cu", "round_wide.cu", "round_cluster.cu")
+
+
+_PROFILE_BUILD: dict = {}
+
+
+def start_profile_build() -> None:
+    """Build the profile library (round_profile_library) on a thread, beside
+    the shipped build; round_profile_library waits for it."""
+    import threading
+
+    def run():
+        try:
+            _profile_build()
+        except Exception as e:  # re-raised where the library is asked for
+            _PROFILE_BUILD["error"] = e
+
+    _PROFILE_BUILD["thread"] = threading.Thread(target=run, daemon=True)
+    _PROFILE_BUILD["thread"].start()
+
+
+def _profile_build():
+    from armada_tpu_torch.kernels import build as kbuild
+
+    out = kbuild.BUILD_DIR / f"libround-profile-{kbuild._digest()}.so"
+    if not out.exists():
+        kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for src in ROUND_SOURCES:
+            obj = kbuild.BUILD_DIR / f"profile-{src}.o"
+            procs.append((obj, subprocess.Popen(
+                [kbuild._nvcc(), *kbuild.FLAGS, "-DROUND_STEP_PROFILE", "-c",
+                 str(kbuild.SRC_DIR / src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for obj, proc in procs:
+            o, e = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc of the profile build failed:\n{o}{e}")
+        done = subprocess.run(
+            [kbuild._nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o",
+             str(out), *[str(o) for o, _ in procs]], capture_output=True, text=True, timeout=600)
+        if done.returncode != 0:
+            raise RuntimeError(f"link of the profile build failed:\n{done.stdout}{done.stderr}")
+    return out
+
+
+def round_profile_library():
+    """round.cu, round_wide.cu and round_cluster.cu built with
+    -DROUND_STEP_PROFILE into a library of their own (one nvcc a source, all
+    started together), loaded with ctypes and bound as kernels/build.py binds
+    the shipped one."""
+    import ctypes
+
+    if "lib" in _PROFILE_BUILD:
+        return _PROFILE_BUILD["lib"]
+    if "thread" in _PROFILE_BUILD:
+        _PROFILE_BUILD["thread"].join()
+        if "error" in _PROFILE_BUILD:
+            raise _PROFILE_BUILD["error"]
+    lib = ctypes.CDLL(str(_profile_build()))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name, args in (("armada_round_prologue", [vp, vp]),
+                       ("armada_round_main", [vp, vp, vp, ci, vp]),
+                       ("armada_round_sharded_main", [vp, ci, vp, vp, ci, vp]),
+                       ("armada_round_cluster_max", [vp, ci]),
+                       ("armada_round_args_size", []),
+                       ("armada_round_step_profile", [vp, ci]),
+                       ("armada_round_step_profile_slots", [])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ci
+    lib.armada_round_wide_need.argtypes = [ci, ci, vp]
+    lib.armada_round_wide_need.restype = None
+    _PROFILE_BUILD["lib"] = lib
+    return lib
+
+
+def step_profile(dp, kw: dict, shards: int) -> dict:
+    """One solo round of `dp` through the profile build at `shards` CTAs
+    (1: the single-CTA form): us a step per section of lane 0's rank-0 CTA
+    (clock64 cycles scaled by the loop's globaltimer nanoseconds), barriers
+    a step, steps and the loop's device ms."""
+    import ctypes
+
+    import torch
+
+    from armada_tpu_torch.kernels import round as KR
+
+    lib = round_profile_library()
+    saved = KR.library
+    KR.library = lambda: lib
+    try:
+        with uncounted():
+            KR._launch(dp, 0, shards=shards, **kw)
+            torch.cuda.synchronize()
+        n = lib.armada_round_step_profile_slots()
+        vals = (ctypes.c_longlong * n)()
+        rc = lib.armada_round_step_profile(vals, 1 if shards > 1 else 0)
+        if rc:
+            raise RuntimeError(f"reading the step profile failed (cudaError_t {rc})")
+    finally:
+        KR.library = saved
+    vals = list(vals)
+    k = len(STEP_SECTIONS)
+    steps, barriers, loop_ns, loop_cyc = vals[k:k + 4]
+    scale = loop_ns / max(loop_cyc, 1) / 1e3 / max(steps, 1)
+    us = {name: vals[i] * scale for i, name in enumerate(STEP_SECTIONS)}
+    return dict(shards=shards, steps=steps, barriers_per_step=barriers / max(steps, 1),
+                loop_ms=loop_ns / 1e6, us_per_step=us, us_step_total=sum(us.values()))
+
+
+def log_step_profile(what: str, prof: dict) -> None:
+    log(f"step profile [{what}, S={prof['shards']}]: {prof['steps']} steps, loop "
+        f"{prof['loop_ms']:.2f} ms, {prof['us_step_total']:.2f} us a step, "
+        f"{prof['barriers_per_step']:.1f} barriers a step; us a step: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in prof["us_per_step"].items()))
+
+
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / F32_OPS_PER_S * 1e3
@@ -278,32 +398,103 @@ def check_compact(dev) -> None:
     log(f"K-C compact G={G} RJ={RJ}: kernel == plain (capped and uncapped lists)")
 
 
+def round_forms(p, kw: dict, lanes: int = 0):
+    """(S, the round at S, the round at S = 1) for a solo (`lanes` 0) or
+    stacked round of `p` at the resolved statics `kw`: S is the cluster
+    size kernels/round.py's owner picks (choose_cluster_size), S = 1 the
+    single-CTA form, both through the wrapper's launch sequence."""
+    from armada_tpu_torch.kernels import round as KR
+
+    S = KR._owner_size(p, max(lanes, 1), kw)
+    return (S, lambda: KR._launch(p, lanes, shards=S, **kw),
+            lambda: KR._launch(p, lanes, shards=1, **kw))
+
+
+def forms_in_turns(p, kw: dict, lanes: int = 0, reps: int = 2) -> dict:
+    """The owner's cluster size against S = 1 in turns (S = 1, chosen,
+    chosen, S = 1; CUDA events, `reps` rounds a turn), the two equal in
+    every field; launches uncounted."""
+    S, chosen, single = round_forms(p, kw, lanes)
+    ms: dict = {"single": [], "chosen": []}
+    out = {}
+    with uncounted():
+        for key, fn in (("single", single), ("chosen", chosen), ("chosen", chosen),
+                        ("single", single)):
+            t, out[key] = cuda_ms(fn, reps=reps)
+            ms[key].append(t)
+        max_err(out["chosen"], out["single"])
+    return dict(S=S, single_ms=ms["single"], chosen_ms=ms["chosen"],
+                single_mean=float(np.mean(ms["single"])), chosen_mean=float(np.mean(ms["chosen"])),
+                result=out["chosen"])
+
+
 def check_round(name: str, problem, meta: dict, dev, **statics) -> dict:
     """Kernel round vs plain round on the card, every field (kernel_iters
     included), at the loop shape `statics` (prefer_large, commit_k) asks
-    for.  `problem` is a numpy problem or one on the card."""
+    for: the round at the cluster size its owner picks, and (where that is
+    above 1) the single-CTA form too.  `problem` is a numpy problem or one
+    on the card."""
     import torch
 
-    from armada_tpu_torch.kernels.round import schedule_round
+    from armada_tpu_torch.kernels import round as KR
     from armada_tpu_torch.models.fair_scheduler import round_statics, schedule_round_plain
     from armada_tpu_torch.models.state import problem_from_numpy
 
     dp = problem if isinstance(problem.g_req, torch.Tensor) else problem_from_numpy(problem, dev)
     kw = dict(meta, **round_statics(dp, **statics))
-    k = schedule_round(dp, **kw)
+    k = KR.schedule_round(dp, **kw)
+    S = KR.last_cluster_size()
     torch.cuda.synchronize()
     p = schedule_round_plain(dp, **kw)
     torch.cuda.synchronize()
     max_err(k, p)
+    if S > 1:
+        with uncounted():
+            max_err(KR._launch(dp, 0, shards=1, **kw), p)
     info = dict(
         iterations=int(k.iterations), kernel_iters=int(k.kernel_iters),
         scheduled=int(k.scheduled_count),
         evicted=int(k.run_evicted.sum()), rescheduled=int(k.run_rescheduled.sum()),
-        termination=int(k.termination), spot_price=float(k.spot_price),
+        termination=int(k.termination), spot_price=float(k.spot_price), cluster=S,
     )
     shape = " ".join(f"{a}={b}" for a, b in statics.items())
-    log(f"K-B round [{name}{' ' + shape if shape else ''}]: kernel == plain {info}")
+    log(f"K-B round [{name}{' ' + shape if shape else ''}]: kernel (S={S}"
+        f"{' and S=1' if S > 1 else ''}) == plain {info}")
     return info
+
+
+def window_problem(seed: int = 0, num_queues: int = 100):
+    """A small synthetic problem (models/synthetic.py adversarial_windows)
+    whose queue windows stress the placement loop's window walk, with
+    `num_queues` live queues: more than a block has half-warps at 100."""
+    from armada_tpu_torch.models.synthetic import adversarial_windows, synthetic_problem
+
+    p, meta = synthetic_problem(num_nodes=300, num_gangs=2_000, num_queues=num_queues,
+                                num_runs=200, global_burst=1_600, perq_burst=1_600, seed=seed)
+    return adversarial_windows(p), meta
+
+
+def check_windows(dev) -> dict:
+    """The adversarial windows (window_problem) at every loop shape, solo at
+    the owner's cluster size and at S = 1, and on a 3-lane stack; each
+    equal to the plain version in every field."""
+    from armada_tpu_torch.models.state import problem_from_numpy
+
+    out = {}
+    wp, wmeta = window_problem(0)
+    wdp = problem_from_numpy(wp, dev)
+    for statics in (dict(), dict(commit_k=LOOP_COMMIT_K), dict(batch_k=8), dict(cache_slots=8),
+                    dict(prefer_large=True)):
+        out["windows " + str(statics)] = check_round("adversarial windows", wdp, wmeta, dev,
+                                                     **statics)
+    base = out["windows {}"]
+    if base["iterations"] < 100:
+        raise AssertionError(f"the window problem ran {base['iterations']} iterations")
+    lanes = [problem_from_numpy(window_problem(s, num_queues=40)[0], dev) for s in (1, 2, 3)]
+    for statics in (dict(),):
+        out["windows stacked " + str(statics)] = _stacked_check("adversarial windows", lanes,
+                                                                wmeta, dev, **statics)
+    return out
 
 
 def round_meta(ctx) -> dict:
@@ -359,7 +550,7 @@ def main_path(dev, world) -> dict:
         f"preempted {len(outcome.preempted)} failed {len(outcome.failed)} "
         f"iterations {outcome.num_iterations} termination {outcome.termination}; "
         f"launches {launches}")
-    for k in ("fair_shares", "round", "compact"):
+    for k in ("fair_shares", "round", "compact", "round_clustered"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
 
@@ -378,14 +569,26 @@ def main_path(dev, world) -> dict:
     N, R = (int(x) for x in dp.node_total.shape)
     RJ = int(dp.run_req.shape[0])
     kw = dict(meta, max_iterations=2 * G + Q + 8)
-    round_ms, result = cuda_ms(lambda: schedule_round(dp, **kw), reps=3)
+    # a second warm-up: the cluster's replicas grow the caching allocator
+    # on the first rounds at this shape (cudaMalloc is not the kernels' time);
+    # and no collector pass over the 1M-job world's objects inside the timed
+    # rounds, whose device work is now shorter than such a pass
+    schedule_round(dp, **kw)
+    gc.disable()
+    try:
+        round_ms, result = cuda_ms(lambda: schedule_round(dp, **kw), reps=3)
+    finally:
+        gc.enable()
+    from armada_tpu_torch.kernels.round import last_cluster_size
+
+    cluster = last_cluster_size()
     t0 = time.perf_counter()
     decoded = begin_decode(result, ctx)()
     decode_s = time.perf_counter() - t0
     iters = int(result.iterations)
     log(f"main path stages: build_problem {build_s:.2f} s, upload {upload_s:.3f} s, "
-        f"round kernels {round_ms:.2f} ms, decode {decode_s:.3f} s; N={N} G={G} Q={Q} RJ={RJ} "
-        f"iterations {iters}")
+        f"round kernels {round_ms:.2f} ms (the loop as clusters of {cluster} CTAs), decode "
+        f"{decode_s:.3f} s; N={N} G={G} Q={Q} RJ={RJ} iterations {iters}")
     if decoded.scheduled != outcome.scheduled or sorted(decoded.preempted) != sorted(outcome.preempted):
         raise AssertionError("the timed stages disagree with the entry point's outcome")
 
@@ -465,6 +668,7 @@ def main_path(dev, world) -> dict:
             max_abs_err=err, equal=err == 0.0, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
             library_ms=None,
         ))
+    rows[1]["cluster_size"] = cluster
     stages = dict(profile=profile_rows, world_s=world_s, entry_s=entry_s, build_problem_s=build_s,
                   upload_s=upload_s, round_ms=round_ms, decode_s=decode_s,
                   plain_round_ms=plain_round_ms, iterations=iters, N=N, G=G, Q=Q, RJ=RJ,
@@ -557,6 +761,7 @@ def check_loop_kernels(dev) -> dict:
         key = "stacked " + " ".join(f"{a}={b}" for a, b in statics.items())
         out[key] = _stacked_check("loop lanes (TR > 1)", lanes, lmeta, dev, **statics)
     out.update(check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta))
+    out.update(check_windows(dev))
     return out
 
 
@@ -973,6 +1178,42 @@ def k11_main_world(dev, main: dict, k1_outcome) -> dict:
                          plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None))
     return dict(rows=rows, report=report)
 
+
+
+def cluster_path(dev, main: dict) -> dict:
+    """The redesigned step on the main path's own problem: K-B and every
+    loop shape the loop-shapes path drives (K10 at K = 8, prefer-large,
+    K11's cache at 64 slots and its pick chain at batch_k 8) at the cluster
+    size the owner picks, timed in turns against S = 1 (forms_in_turns,
+    equal in every field), and the per-section step profile of the
+    ROUND_STEP_PROFILE build: K-B at S = 1 and every shape at its S."""
+    from armada_tpu_torch.models.fair_scheduler import round_statics
+
+    dp, ctx = main["dp"], main["ctx"]
+    meta = round_meta(ctx)
+    base = dict(cache_slots=0, batch_k=1, commit_k=1)
+    shapes = (("K-B", base), ("K10 commit_k 8", dict(base, commit_k=LOOP_COMMIT_K)),
+              ("prefer-large", dict(base, prefer_large=True)),
+              ("K11 cached", dict(base, cache_slots=-1)),
+              ("K11 batch_k 8", dict(base, batch_k=K11_BATCH_K)))
+    report = {}
+    for name, st in shapes:
+        kw = _with_env(dict(ARMADA_CACHE_SLOTS=K11_SLOTS),
+                       lambda st=st: dict(meta, **round_statics(dp, **st)))
+        t = forms_in_turns(dp, kw)
+        trips = int(t.pop("result").kernel_iters)
+        t.update(kernel_iters=trips, single_us_per_trip=t["single_mean"] * 1e3 / trips,
+                 chosen_us_per_trip=t["chosen_mean"] * 1e3 / trips)
+        log(f"cluster path [{name}, main world]: S=1 {t['single_ms']} ms, S={t['S']} "
+            f"{t['chosen_ms']} ms in turns ({t['single_us_per_trip']:.2f} against "
+            f"{t['chosen_us_per_trip']:.2f} us a trip, {trips} trips); equal in every field")
+        t["profile"] = {}
+        for S in ((1, t["S"]) if name == "K-B" else (t["S"],)):
+            prof = step_profile(dp, kw, S)
+            log_step_profile(name, prof)
+            t["profile"][S] = prof
+        report[name] = t
+    return report
 
 
 # --- the incremental path --------------------------------------------------------
@@ -1421,6 +1662,7 @@ def _stacked_check(name: str, lanes: list, meta: dict, dev, **statics) -> dict:
     import torch
 
     from armada_tpu_torch.kernels import lanes as KL
+    from armada_tpu_torch.kernels import round as KR
     from armada_tpu_torch.kernels.compact import (
         compact_result_stacked, compact_result_stacked_plain,
     )
@@ -1438,10 +1680,14 @@ def _stacked_check(name: str, lanes: list, meta: dict, dev, **statics) -> dict:
     problems_equal(st, KL.stack_plain(lanes), f"{name}: K-E vs torch.stack")
     kw = dict(meta, **round_statics(st, **statics))
     k = stacked_kernel(st, **kw)
+    S = KR.last_cluster_size()
     torch.cuda.synchronize()
     p = schedule_round_stacked_plain(st, **kw)
     torch.cuda.synchronize()
     max_err(k, p)
+    if S > 1:
+        with uncounted():
+            max_err(KR._launch(st, P, shards=1, **kw), p)
     for i, lane in enumerate(lanes):
         solo = round_kernel(lane, **kw)
         max_err(KL.lane_slice(k, i), solo)
@@ -1459,14 +1705,14 @@ def _stacked_check(name: str, lanes: list, meta: dict, dev, **statics) -> dict:
         for i, lane in enumerate(lanes)
     ])
     max_err(ki, ki_plain)
-    info = dict(lanes=P, iterations=[int(x) for x in k.iterations],
+    info = dict(lanes=P, cluster=S, iterations=[int(x) for x in k.iterations],
                 kernel_iters=[int(x) for x in k.kernel_iters],
                 scheduled=[int(x) for x in k.scheduled_count],
                 evicted=[int(x.sum()) for x in k.run_evicted],
                 rescheduled=[int(x.sum()) for x in k.run_rescheduled])
     shape = " ".join(f"{a}={b}" for a, b in statics.items())
-    log(f"K-D/K-E/K-F/K-G/K-I stacked [{name}{' ' + shape if shape else ''}]: kernels == plain, "
-        f"lanes == solo K-B {info}")
+    log(f"K-D/K-E/K-F/K-G/K-I stacked [{name}{' ' + shape if shape else ''}]: kernels (K-D at "
+        f"S={S}{' and S=1' if S > 1 else ''}) == plain, lanes == solo K-B {info}")
     return info
 
 
@@ -2154,6 +2400,14 @@ def pools_path(dev, world: dict, small: dict) -> dict:
         other.pop("replay_state", None)
     from armada_tpu_torch.models.fair_scheduler import resolve_round_statics
 
+    from armada_tpu_torch.models.fair_scheduler import round_statics
+
+    rkw = {k: kk[k] for k in ("num_levels", "max_slots", "slot_width")}
+    rkw.update(round_statics(stacked, **{k: v for k, v in kk.items() if k not in rkw}))
+    kd_turns = forms_in_turns(stacked, rkw, lanes=len(dps))
+    kd_turns.pop("result")
+    log(f"pools path: K-D's {len(dps)} lanes at S=1 {kd_turns['single_ms']} ms, at the owner's "
+        f"S={kd_turns['S']} {kd_turns['chosen_ms']} ms in turns; equal in every field")
     with uncounted():
         kw = dict(kk, max_iterations=resolve_round_statics(stacked))
         ke_plain = KL.stack_plain(dps)
@@ -2222,7 +2476,7 @@ def pools_path(dev, world: dict, small: dict) -> dict:
     for arm in (par, ser):
         arm.pop("decisions")
     return dict(rows=rows, small=small, parallel=par, serial=ser, wall_s=wall_s,
-                N=N, G=G, RJ=RJ, P=P, lanes_in_turns=turns)
+                N=N, G=G, RJ=RJ, P=P, lanes_in_turns=turns, stacked_round_turns=kd_turns)
 
 
 # --- the simulator path --------------------------------------------------------------
@@ -2616,6 +2870,7 @@ def mesh_main(dev, main: dict, plain_round_ms: float) -> dict:
     import torch
 
     from armada_tpu_torch import kernels
+    from armada_tpu_torch.kernels import round as KR
     from armada_tpu_torch.kernels.round import cluster_capacity, schedule_round
     from armada_tpu_torch.models import run_round_on_device
     from armada_tpu_torch.models.fair_scheduler import round_statics, schedule_round_plain
@@ -2633,14 +2888,18 @@ def mesh_main(dev, main: dict, plain_round_ms: float) -> dict:
             f"(cluster capacity {report['capacity']})")
         ms: dict = {}
         for s in [1] + shards + shards[::-1] + [1]:
-            mesh = _mesh(dev, s) if s > 1 else None
-            t, _ = cuda_ms(lambda mesh=mesh: schedule_round(dp, mesh=mesh, **kw), reps=3)
+            if s > 1:
+                mesh = _mesh(dev, s)
+                t, _ = cuda_ms(lambda mesh=mesh: schedule_round(dp, mesh=mesh, **kw), reps=3)
+            else:  # K-B's single-CTA form
+                t, _ = cuda_ms(lambda: KR._launch(dp, 0, shards=1, **kw), reps=3)
             ms.setdefault(s, []).append(t)
     iters = int(kb.iterations)
     report.update(ms=ms, iterations=iters,
                   us_per_iter={s: float(np.mean(v)) * 1e3 / iters for s, v in ms.items()})
     log("mesh path [main world]: ms in turns " + ", ".join(
-        f"{'K-B' if s == 1 else f'S={s}'} {v}" for s, v in ms.items()) + f"; {iters} iterations")
+        f"{'K-B at S=1' if s == 1 else f'S={s}'} {v}" for s, v in ms.items())
+        + f"; {iters} iterations")
 
     # A1: the main world at WIDE_K
     k1 = main["outcome"]
@@ -2839,6 +3098,7 @@ def main() -> int:
     log(f"card: {smi}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    start_profile_build()
     kbuild.library()
     build_s = time.perf_counter() - t0
     log(f"kernels built and loaded in {build_s:.1f} s (nvcc {kbuild.BUILD_INFO.get('seconds', 0.0):.1f} s)")
@@ -2899,6 +3159,8 @@ def main() -> int:
     loop = loop_shapes_path(dev, main_state)
     report["loop_shapes"] = dict(small=loop_small, **loop["report"])
     mark("loop-shapes path")
+    report["cluster"] = cluster_path(dev, main_state)
+    mark("cluster path (S = 1 against the owner's S, step profiles)")
     mesh_m = mesh_main(dev, main_state, mp_report["stages"]["plain_round_ms"])
     mark("mesh path, main world")
     del main_state

@@ -208,3 +208,26 @@ def test_shard_problem_autopads_non_divisible():
 def test_jax_virtual_mesh_is_there():
     """The JAX side of this file runs on the conftest's 8 virtual devices."""
     assert len(jax.devices()) == 8
+
+
+@pytest.mark.parametrize("n", [2, 6, 8, 16, 24, 32, 64])
+def test_serving_clamp_is_the_cluster_owner(n):
+    """parallel/serving.py `_cluster_limit` halves a configured shard count
+    to a cluster the card can launch by kernels/round.py's owner of the
+    cluster size; off the card it keeps the configured count (JAX
+    parity)."""
+    import torch
+
+    from armada_tpu_torch.kernels.round import choose_cluster_size
+    from armada_tpu_torch.parallel.serving import _cluster_limit
+
+    cap = lambda s: 128 // s if s <= 16 else 0  # noqa: E731
+    cuda = torch.device("cuda")
+    got = _cluster_limit(n, cuda, capacity=cap)
+    halved = n
+    while halved >= 2 and cap(halved) < 1:
+        halved = halved // 2 if halved % 2 == 0 else 1
+    assert got == halved
+    sizes = [n >> i for i in range(8) if n >> i >= 2 and n % (1 << i) == 0]
+    assert got == choose_cluster_size(None, 1, capacity=cap, device="cuda", sizes=sizes)
+    assert _cluster_limit(n, torch.device("cpu")) == n

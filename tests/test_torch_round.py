@@ -180,3 +180,63 @@ def test_unported_statics_raise():
         for name, a, b in zip(got._fields, ref, got):
             np.testing.assert_array_equal(np.asarray(a), b, err_msg=f"{kw} {name}")
         assert int(got.n_slots) > 0
+
+
+def test_round_adversarial_windows():
+    """The placement loop's 16-entry cursor window at its edges
+    (models/synthetic.py adversarial_windows: whole windows of a bad key,
+    bad keys in mid-window, queues shorter than the window, windows that
+    cross q_len), the plain round against the JAX package's."""
+    from armada_tpu_torch.models.synthetic import adversarial_windows
+
+    problem, meta = jax_synthetic(num_nodes=60, num_gangs=600, num_queues=40, num_runs=30,
+                                  global_burst=500, perq_burst=500, seed=3)
+    problem = adversarial_windows(problem)
+    got = _compare(problem, meta, 600, 30)
+    assert int(got.n_slots) > 0
+    bad = int(problem.compat.shape[0]) - 1
+    assert (np.asarray(got.g_state)[np.asarray(problem.g_key) == bad] == 2).any()
+
+
+def _capacity(clusters_at_16: int = 8):
+    """A card's cluster capacity as cudaOccupancyMaxActiveClusters answers
+    it on one CTA an SM: clusters_at_16 x 16 SMs in whole clusters."""
+    return lambda s: (clusters_at_16 * 16) // s
+
+
+@pytest.mark.parametrize("case", ["largest", "wide", "untiled cache", "lanes", "cpu", "none"])
+def test_cluster_size_owner(case):
+    """kernels/round.py choose_cluster_size, the one owner of the
+    placement loop's cluster size, as a pure function of N, the lanes, the
+    loop shape and the capacity it is handed."""
+    from armada_tpu_torch.kernels.round import MAX_CLUSTER, choose_cluster_size
+    from armada_tpu_torch.models.fair_scheduler import block_size
+
+    cap = _capacity()
+    pick = lambda N, P=1, **kw: choose_cluster_size(N, P, capacity=cap, device="cuda", **kw)  # noqa: E731
+    if case == "largest":
+        assert pick(57_344) == MAX_CLUSTER == 16
+        assert pick(6_144) == 16 and pick(2_000) == 16 and pick(48) == 16
+        assert pick(7 * 11 * 13) == 13  # the largest divisor of N up to 16
+    elif case == "wide":
+        for kw in (dict(commit_k=17), dict(batch_k=17), dict(commit_k=64)):
+            assert pick(57_344, **kw) == 1
+        assert pick(57_344, commit_k=16) == 16 and pick(57_344, batch_k=16) == 16
+    elif case == "untiled cache":
+        # N / S must stay a multiple of the cache's block
+        for N in (2_000, 48, 6_144, 57_344, 64):
+            s = pick(N, cache_slots=8)
+            assert s <= pick(N) and N % s == 0 and (N // s) % block_size(N) == 0
+        assert pick(2_000, cache_slots=8) == 5 < pick(2_000)
+        assert pick(64, cache_slots=8) == 1
+    elif case == "lanes":
+        for P in (1, 7, 8, 9, 20, 64, 200):
+            s = pick(6_144, P)
+            assert s == 1 or cap(s) >= P, (P, s)  # P clusters of S fit at once
+            bigger = [t for t in range(s + 1, MAX_CLUSTER + 1) if 6_144 % t == 0]
+            assert all(cap(t) < P for t in bigger), (P, s)
+        assert pick(6_144, 9) == 12 and pick(6_144, 200) == 1
+    elif case == "cpu":
+        assert choose_cluster_size(57_344, 1, capacity=cap, device="cpu") == 1
+    elif case == "none":
+        assert choose_cluster_size(57_344, 1, capacity=lambda s: 0, device="cuda") == 1
