@@ -1,5 +1,7 @@
 // K-E and K-G: stacking pool problems along a lane axis, and slicing one
-// lane back out -- one batched copy kernel for both.
+// lane back out -- one batched copy kernel for both.  K-H (csrc/slab.cu)
+// makes its functional copies with it too, through `armada_lanes_copy` and
+// lanes.cuh.
 //
 // Replaces the JAX package's models/__init__.py `_stack_problems._stack`
 // (:658, a jitted tree_map of jnp.stack over the ~47 fields of P device
@@ -46,12 +48,9 @@
 // turns with its library call (torch.stack, t[i].clone() per field) on the
 // cycle's own lanes, and the launch alone, cold and hot, against the bound.
 
-#include "common.cuh"
+#include "lanes.cuh"
 
-#define LANES_THREADS 256
-#define LANES_UNROLL 4
 #define LANES_BLOCKS_PER_SM 4
-#define LANES_TILE (LANES_THREADS * LANES_UNROLL * 16)  // 16 KB
 #ifndef LANES_CAP
 #define LANES_CAP 1000
 #endif
@@ -61,14 +60,6 @@
 #if !defined(CUDART_VERSION) || CUDART_VERSION < 12010
 #error "lanes.cu passes up to 32 KB of kernel parameters: CUDA 12.1 or later"
 #endif
-
-struct CopyDesc {
-    const u8* src;
-    u8* dst;
-    long long bytes;  // > 0: zero-byte fields get no descriptor
-    int tile0;        // tiles of the descriptors before this one
-    int wlog;         // src and dst agree modulo 1 << wlog, wlog in 0..4
-};
 
 template <int CAP>
 struct CopyChunk {

@@ -116,20 +116,21 @@ def library() -> ctypes.CDLL:
         lib.armada_compact.restype = ci
         lib.armada_compact_args_size.argtypes = []
         lib.armada_compact_args_size.restype = ci
-        lib.armada_slab_scatter.argtypes = [vp, vp]
-        lib.armada_slab_scatter.restype = ci
-        lib.armada_slab_splice.argtypes = [vp, vp]
-        lib.armada_slab_splice.restype = ci
+        lib.armada_slab_apply.argtypes = [vp, vp]
+        lib.armada_slab_apply.restype = ci
+        lib.armada_slab_ws_bytes.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+        lib.armada_slab_ws_bytes.restype = ctypes.c_longlong
         lib.armada_verify.argtypes = [vp, vp]
         lib.armada_verify.restype = ci
         lib.armada_explain.argtypes = [vp, vp]
         lib.armada_explain.restype = ci
         lib.armada_explain_len.argtypes = [vp]
         lib.armada_explain_len.restype = ctypes.c_longlong
+        lib.armada_fadd_cycles.argtypes = [vp, ci, vp]
+        lib.armada_fadd_cycles.restype = ci
         lib.armada_lanes_copy.argtypes = [vp, ci, vp]
         lib.armada_lanes_copy.restype = ci
-        for name in ("armada_slab_args_size", "armada_slab_group_size",
-                     "armada_splice_args_size", "armada_verify_args_size",
+        for name in ("armada_slab_call_size", "armada_verify_args_size",
                      "armada_explain_args_size", "armada_lanes_desc_size",
                      "armada_lanes_tile_bytes"):
             getattr(lib, name).argtypes = []
@@ -165,3 +166,17 @@ def require_cuda(t, name: str, dtype, ndim: int | None = None) -> None:
         raise ValueError(f"{name}: expected {ndim} dimensions, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def placed(tensors, dev) -> bool:
+    """All of `tensors` contiguous and on `dev`, in one pass each and
+    without names: a wrapper's fast check of its inputs, before the checks
+    one at a time that name the first failing input."""
+    import torch
+
+    try:
+        return (set(map(torch.Tensor.get_device, tensors))
+                <= {dev.index if dev.type == "cuda" else -1}
+                and all(map(torch.Tensor.is_contiguous, tensors)))
+    except TypeError:  # not a tensor
+        return False

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from armada_tpu_torch import kernels
-from armada_tpu_torch.kernels.build import check, library, stream_handle
+from armada_tpu_torch.kernels.build import check, library, placed, stream_handle
 
 ALIGN = 512
 TILE = 16384  # csrc/lanes.cu LANES_TILE; checked when the library loads
@@ -169,16 +169,6 @@ def _require_each(tree, dev, what: str, shapes=None, dtypes=None) -> None:
             raise ValueError(f"{what}field {name} differs in shape or dtype")
 
 
-def _placed(tensors, dev) -> bool:
-    """All of `tensors` contiguous and on `dev` (one pass each, no names)."""
-    try:
-        return (set(map(torch.Tensor.get_device, tensors))
-                <= {dev.index if dev.type == "cuda" else -1}
-                and all(map(torch.Tensor.is_contiguous, tensors)))
-    except TypeError:  # not a tensor
-        return False
-
-
 def stack_plain(trees):
     """The plain version of K-E: torch.stack per field."""
     return type(trees[0])(*(torch.stack(list(lanes)) for lanes in zip(*trees)))
@@ -226,7 +216,7 @@ def stack_plan(trees):
     flat = tuple(itertools.chain.from_iterable(trees))
     # a tree at a time: the shapes of all P trees at once are P x 47 more
     # objects for the collector to count, and a pass of it inside the call
-    if not (all(type(tree) is type(first) for tree in trees) and _placed(flat, dev)
+    if not (all(type(tree) is type(first) for tree in trees) and placed(flat, dev)
             and all(tuple(map(_SHAPE, tree)) == shapes and tuple(map(_DTYPE, tree)) == dtypes
                     for tree in trees)):
         for li, tree in enumerate(trees):
@@ -268,7 +258,7 @@ def slice_plan(tree, i: int):
         return _Layout([tuple(s[1:]) for s in shapes], dtypes, offsets, arena_bytes, rows)
 
     layout = _layout(("slice", type(tree), shapes, dtypes), build)
-    if not _placed(tree, dev):
+    if not placed(tree, dev):
         _require_each(tree, dev, "lane_slice: ")
     if not 0 <= i < P:
         raise IndexError(f"lane_slice: lane {i} of {P}")

@@ -167,33 +167,46 @@ def ordered_column_sums(x: torch.Tensor) -> torch.Tensor:
 
 
 def _max_rows(out: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
-    """out.at[idx].max(rows) in place (rows [n, R] into out [S, R])."""
-    out.scatter_reduce_(0, idx.long()[:, None].expand(-1, out.shape[1]), rows, "amax",
-                        include_self=True)
+    """out.at[idx].max(rows, mode="drop") in place (rows [n, R] into out
+    [S, R]).  By sorting, not a scatter: a max is exact in any order, and on
+    a card a scatter's atomics contend when most rows share a few indices
+    (a million gangs of 32 keys)."""
+    i, ok = jax_index(idx, out.shape[0])
+    i, rows = i[ok], rows[ok]
+    if i.numel() == 0:
+        return
+    for r in range(out.shape[1]):
+        v, o = torch.sort(rows[:, r])  # ascending, NaN last
+        k, o2 = torch.sort(i[o], stable=True)  # by index; each index's values stay ascending
+        last = torch.ones_like(k, dtype=torch.bool)
+        last[:-1] = k[1:] != k[:-1]
+        k = k[last]
+        out[k, r] = torch.maximum(out[k, r], v[o2][last])
 
 
 def sequential_segment_sums(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     """zeros[S, R].at[seg].add(x) with the adds of each segment taken left
     to right in row order, as XLA:CPU's scatter loop does (f32, so the order
-    decides the rounding).  Rows are visited rank by rank within their
-    segment, vectorized across segments."""
+    decides the rounding).  The rows of each segment, in row order, go
+    through numpy's `add.accumulate` on the host, which adds strictly left
+    to right in the array's dtype: one call a segment, however long the
+    chain (torch's cumsum accumulates f32 in a wider type on the CPU)."""
     dev = x.device
     S, R = num_segments, x.shape[1]
-    out = torch.zeros((S, R), dtype=x.dtype, device=dev)
     seg_l, ok = jax_index(seg, S)
     rows = torch.nonzero(ok).flatten()
-    if rows.numel() == 0:
-        return out
-    s = seg_l[rows]
-    order = torch.argsort(s, stable=True)
-    rows, s = rows[order], s[order]
-    counts = torch.bincount(s, minlength=S)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(rows.numel(), device=dev) - starts[s]
-    for j in range(int(counts.max())):
-        pick = rank == j
-        out[s[pick]] = out[s[pick]] + x[rows[pick]]
-    return out
+    out = np.zeros((S, R), dtype=np.float32)
+    if rows.numel():
+        s = seg_l[rows]
+        order = torch.argsort(s, stable=True)
+        xs = x[rows[order]].cpu().numpy()
+        counts = torch.bincount(s, minlength=S).cpu().numpy()
+        start = 0
+        for si in np.flatnonzero(counts):
+            end = start + int(counts[si])
+            out[si] = np.add.accumulate(xs[start:end], axis=0, dtype=np.float32)[-1]
+            start = end
+    return torch.from_numpy(out).to(dev)
 
 
 def explain_kernel_plain(
@@ -227,9 +240,11 @@ def explain_kernel_plain(
     free = torch.where(node_ok[:, None], torch.clamp_min(alloc[0], 0.0),
                        torch.zeros((), dtype=f32, device=dev))
 
-    nt = node_type.long()
-    fits_empty = compat[:, nt] & node_ok[None, :]
-    fits_empty_pre = compat_pre_type[:, nt] & node_ok[None, :]
+    # node_type under JAX's index rules: the gathers clamp it (after a
+    # negative index counts from the end), the per-type scatters drop it
+    nt_gather = torch.where(node_type < 0, node_type.long() + T, node_type.long()).clamp(0, T - 1)
+    fits_empty = compat[:, nt_gather] & node_ok[None, :]
+    fits_empty_pre = compat_pre_type[:, nt_gather] & node_ok[None, :]
     fits_now = fits_empty
     for ri in range(R):
         size_ok = node_total[:, ri][None, :] >= req_node_k[:, ri][:, None]
@@ -291,7 +306,7 @@ def explain_kernel_plain(
     frag_max = free.amax(dim=0)
     type_frag_free = sequential_segment_sums(free, node_type, T)
     type_frag_max = torch.zeros((T, R), dtype=f32, device=dev)
-    _max_rows(type_frag_max, nt, free)
+    _max_rows(type_frag_max, node_type, free)
 
     header = torch.stack([
         torch.tensor(_VERSION, dtype=i32, device=dev), n_keys, n_failed_gangs, n_failed_jobs,

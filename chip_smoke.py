@@ -12,7 +12,15 @@ the incremental path over the same world: the steady-state cycle
 -> run_round_on_device with verification, K-I, on every round and the
 explain pass, K-J, on its cadence -> decisions applied back), one warm and
 three steady cycles, each kernel held against its plain version on the
-cycle's own state.  A small world runs that path first, to fail fast.
+cycle's own state and on adversarial cases at the path's widths (K-H: a
+slot two groups write, unsorted and negative indices, all-sentinel groups,
+splices with no inserts or no removals; K-J: every node of one type, an
+empty type, T = 1, node types outside [0, T)); K-H is timed without the
+splice in turns with index_put per field, each of K-H and K-J split into
+host ms, device operations and device ms by kernel (`call_split`), and
+K-J's per-type chain floor measured.  A small world runs that path first,
+to fail fast.  `python3 chip_smoke.py --split` runs only that split, on
+the main world's steady apply and explain pass (`split_main`).
 Then the pools path: the same world split over 8 pools and driven through
 FairSchedulingAlgo.schedule over a JobDb and an IncrementalProblemFeed, a
 fill and three steady cycles with ARMADA_POOL_PARALLEL=1 (the seven
@@ -148,26 +156,40 @@ def cuda_ms(fn, reps: int = 3) -> tuple[float, object]:
     return start.elapsed_time(end) / reps, out
 
 
-def round_profile(fn) -> list:
+def cuda_ms_quiet(fn, reps: int = 3) -> tuple[float, object]:
+    """`cuda_ms` with the collector off: a pass over a large world's host
+    objects (the 1M-job builder's) can outlast a call whose own host and
+    device work is ~0.1 ms, and it is the process's cost, not the call's."""
+    gc.disable()
+    try:
+        return cuda_ms(fn, reps)
+    finally:
+        gc.enable()
+
+
+def round_profile(fn, attempts: int = 3) -> list:
     """[(kernel name, launches, device ms)] of one call of fn, largest
-    first, from torch.profiler's CUDA activity."""
+    first, from torch.profiler's CUDA activity.  A session that recorded
+    no device time is run again (seen on the card once in a long script:
+    CUPTI delivered no activity records for the call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((e.key, e.count, us / 1e3))
-    if not rows:
-        raise AssertionError("torch.profiler recorded no device time for the round")
-    return sorted(rows, key=lambda r: -r[2])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                rows.append((e.key, e.count, us / 1e3))
+        if rows:
+            return sorted(rows, key=lambda r: -r[2])
+    raise AssertionError("torch.profiler recorded no device time for the round")
 
 
 # The sections of a placement-loop step in the profile build (csrc/round.cuh
@@ -1351,6 +1373,404 @@ def verify_sum_bound(dp, result) -> dict:
     return out
 
 
+def slab_copy_bytes(args) -> int:
+    """The functional copies' bytes of one K-H call: every touched field of
+    the previous problem (after `fulls`) read once and written once."""
+    from armada_tpu_torch.models.slab import _EV_FIELDS, _RR_FIELDS, _SG_FIELDS
+
+    (prev, *_, fulls, _gq), _kw = args
+    f = {**prev._asdict(), **fulls}
+    return 2 * tensor_bytes(*[f[n] for n in dict.fromkeys(_SG_FIELDS + _EV_FIELDS + _RR_FIELDS)])
+
+
+def slab_adversarial(args) -> list:
+    """K-H's adversarial cases on the incremental path's own apply (its
+    widths and rows), as (name, args, kw): a gang row on an evictee slot
+    the evictee group also writes (the later group wins), the index vectors
+    and their rows out of ascending order, negative indices, every group all
+    sentinel, and splices with no inserts and with no removals.  No slot is
+    written twice within a group (the plain version's index_put leaves that
+    order open on a card)."""
+    import torch
+
+    (prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, gq_args), kw = args
+    G, RJ = int(prev.g_req.shape[0]), int(prev.run_req.shape[0])
+    ev_base = int(kw["ev_base"])
+    dev = sg_idx.device
+    rng = np.random.default_rng(9)
+    sg = sg_idx.cpu().numpy().copy()
+    rr = rr_idx.cpu().numpy().copy()
+    real_rr = np.flatnonzero(rr < RJ)
+    taken = set(np.where(sg < 0, sg + G, sg)[sg < G].tolist())
+    ev_slots = [int(rr[i]) + ev_base for i in real_rr if 0 <= int(rr[i]) + ev_base < G
+                and int(rr[i]) + ev_base not in taken][:16]
+    pads = np.flatnonzero(sg == G)
+    cross = sg.copy()
+    cross[pads[:len(ev_slots)]] = ev_slots
+    neg = sg.copy()
+    free_pads = pads[len(ev_slots):]
+    for p, v in zip(free_pads[:2], (-1, -G)):
+        if (v + G) not in taken:
+            neg[p] = v
+    rneg = rr.copy()
+    if (RJ - 1) not in set(rr.tolist()):
+        rneg[np.flatnonzero(rr == RJ)[:1]] = -1
+    perm_g, perm_r = rng.permutation(len(sg)), rng.permutation(len(rr))
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    def perm(cols, p):
+        return {n: c[t(p)] for n, c in cols.items()}
+
+    base = (prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, gq_args)
+    cases = [
+        ("cross_group", (prev, t(cross)) + base[2:], kw),
+        ("unsorted", (prev, t(sg[perm_g]), perm(sg_cols, perm_g), t(rr[perm_r]),
+                      perm(rr_cols, perm_r), perm(ev_cols, perm_r), fulls, gq_args), kw),
+        ("negative", (prev, t(neg), sg_cols, t(rneg), rr_cols, ev_cols, fulls, gq_args), kw),
+        ("all_sentinel", (prev, torch.full_like(sg_idx, G), sg_cols, torch.full_like(rr_idx, RJ),
+                          rr_cols, ev_cols, fulls, gq_args), kw),
+    ]
+    if kw["splice"]:
+        rem, ins, val = gq_args
+        cases += [
+            ("no_inserts", base[:7] + ((rem, torch.full_like(ins, G), torch.zeros_like(val)),), kw),
+            ("no_removals", base[:7] + ((torch.full_like(rem, G), ins, val),), kw),
+        ]
+    return cases
+
+
+def explain_adversarial(xin) -> list:
+    """K-J's adversarial cases on the incremental path's last explain
+    inputs (its widths), as (name, inputs): every node of one type (each
+    free-capacity sum past 2^24: the longest chain there is), a type with
+    no nodes, T = 1, and node types outside [0, T) (JAX's index rules)."""
+    import torch
+
+    x = list(xin)
+    compat, pre, node_type = x[0], x[1], x[2]
+    T = int(compat.shape[1])
+    cases = [("one_type", x[:2] + [torch.zeros_like(node_type)] + x[3:])]
+    if T > 1:
+        cases.append(("empty_type", x[:2] + [torch.where(node_type == 1, 0, node_type)] + x[3:]))
+    cases.append(("t1", [compat[:, :1].contiguous(), pre[:, :1].contiguous(),
+                         torch.zeros_like(node_type)] + x[3:]))
+    nt = node_type.clone()
+    nt[::7] = -1
+    nt[1::11] = T
+    nt[2::13] = T + 5
+    nt[3::17] = -T - 1
+    cases.append(("index_rule", x[:2] + [nt] + x[3:]))
+    return cases
+
+
+def adversarial_checks(slab_args, xin, kcap: int, fcap: int) -> dict:
+    """Each adversarial case of K-H and K-J, kernel against plain on the
+    card, every field / every i32 of the buffer (raises on a difference)."""
+    import torch
+
+    from armada_tpu_torch.kernels.explain import explain_round
+    from armada_tpu_torch.kernels.slab import apply_delta
+    from armada_tpu_torch.models.explain import explain_kernel_plain
+    from armada_tpu_torch.models.slab import apply_delta_plain
+
+    out = {}
+    with uncounted():
+        for name, a, kw in slab_adversarial(slab_args):
+            before = [t.clone() for t in a[0]]
+            problems_equal(apply_delta(*a, **kw), apply_delta_plain(*a, **kw), f"K-H {name}")
+            for f, x, y in zip(a[0]._fields, a[0], before):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"K-H {name}: the previous problem's {f} was written")
+            out[f"slab_{name}"] = True
+        for name, xi in explain_adversarial(xin):
+            t0 = time.perf_counter()
+            k = explain_round(*xi, kcap=kcap, fcap=fcap)
+            p = explain_kernel_plain(*xi, kcap=kcap, fcap=fcap)
+            max_err(k, p)
+            torch.cuda.synchronize()
+            out[f"explain_{name}"] = time.perf_counter() - t0
+    log(f"adversarial cases, kernel equal to plain: {sorted(out)}")
+    return out
+
+
+def slab_in_turns(args, reps: int = 10) -> dict:
+    """K-H without the splice (splice=False: the library has no splice)
+    in turns with `slab_library` on the same inputs: library, kernel,
+    kernel, library, each the mean of `reps` calls between CUDA events,
+    the collector off."""
+    from armada_tpu_torch.kernels.slab import apply_delta
+
+    (prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, _), kw = args
+    kw = dict(kw, splice=False)
+    kernel = lambda: apply_delta(prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, (), **kw)  # noqa: E731
+    library = slab_library(args)
+    with uncounted():
+        l1 = cuda_ms_quiet(library, reps)[0]
+        k1 = cuda_ms_quiet(kernel, reps)[0]
+        k2 = cuda_ms_quiet(kernel, reps)[0]
+        l2 = cuda_ms_quiet(library, reps)[0]
+    log(f"K-H without the splice in turns with index_put per field, ms a call over {reps} "
+        f"calls: library {l1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, library {l2:.4f}")
+    return dict(library_ms=[l1, l2], kernel_ms=[k1, k2], library_mean_ms=(l1 + l2) / 2,
+                kernel_mean_ms=(k1 + k2) / 2)
+
+
+def chain_floor(xin) -> dict:
+    """K-J's chain floor: the longest type's node count (node_type under
+    the scatter's rule) x the f32 add's dependent latency, measured on the
+    card (`armada_fadd_cycles`, clock64 around a chain of 2^20 adds), over
+    the card's maximum SM clock from nvidia-smi."""
+    import torch
+
+    from armada_tpu_torch.kernels.build import check, library, stream_handle
+
+    T = int(xin[0].shape[1])
+    nt = xin[2].long()
+    nt = torch.where(nt < 0, nt + T, nt)
+    counts = torch.bincount(nt[(nt >= 0) & (nt < T)], minlength=T)
+    longest = int(counts.max())
+    buf = torch.zeros(2, dtype=torch.int64, device=xin[2].device)
+    n = 1 << 20
+    check(library().armada_fadd_cycles(buf.data_ptr(), n, stream_handle()), "fadd chain")
+    cycles = int(buf[0]) / n
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    mhz_max, mhz_now = (float(v) for v in smi.stdout.strip().splitlines()[0].split(","))
+    ms = longest * cycles / (mhz_max * 1e3)
+    log(f"K-J chain floor: longest type {longest} nodes x {cycles:.3f} cycles an add / "
+        f"{mhz_max:.0f} MHz (nvidia-smi clocks.max.sm; clocks.sm {mhz_now:.0f}) = {ms:.5f} ms")
+    return dict(longest_type_nodes=longest, fadd_cycles=cycles, sm_clock_max_mhz=mhz_max,
+                sm_clock_now_mhz=mhz_now, chain_floor_ms=ms)
+
+
+SPLIT_REPS = 20
+
+
+def call_split(fn) -> dict:
+    """Where one call of fn goes: host ms of single calls (the stream
+    drained before each: the wrapper's plan and enqueue), the device
+    operations (kernels, copies, memsets) of one call and their device ms
+    by name (torch.profiler), the mean over SPLIT_REPS back-to-back calls
+    between CUDA events (`cuda_ms`: a host slower than the stream sets its
+    pace), and the device ms of a call alone behind a long spin kernel
+    (`launch_ms` hot behind a spin of four times the reps' host time: the
+    host's enqueue is off the clock)."""
+    host = host_ms(fn, SPLIT_REPS)
+    spin = int(4 * SPLIT_REPS * float(np.median(host)) * 2e6)  # ~2 GHz cycles
+    try:
+        prof = round_profile(fn)
+    except AssertionError:  # the profiler saw nothing: not measured, not a fault
+        prof = None
+    return dict(host_ms_median=float(np.median(host)), host_ms_min=min(host),
+                host_ms_max=max(host),
+                device_ops=sum(n for _, n, _ in prof) if prof else None,
+                device_ms_by_name=[[k, n, ms] for k, n, ms in prof or ()],
+                device_ms_sum=sum(ms for _, _, ms in prof) if prof else None,
+                events_ms=cuda_ms(fn, SPLIT_REPS)[0],
+                events_quiet_ms=cuda_ms_quiet(fn, SPLIT_REPS)[0],
+                alone_ms=launch_ms(fn, "hot", None, SPLIT_REPS, max(spin, 3_000_000)))
+
+
+def log_split(what: str, s: dict) -> None:
+    top = "; ".join(f"{k[:60]} x{n} {ms:.4f}" for k, n, ms in s["device_ms_by_name"][:8])
+    dev = ("device operations not measured (the profiler saw none)" if s["device_ops"] is None
+           else f"{s['device_ops']} device operations, device {s['device_ms_sum']:.4f} ms ({top})")
+    log(f"{what}: host {s['host_ms_median']:.4f} ms a call [{s['host_ms_min']:.4f}-"
+        f"{s['host_ms_max']:.4f}], {dev}; events over {SPLIT_REPS} calls "
+        f"{s['events_ms']:.4f} ms a call ({s['events_quiet_ms']:.4f} with the collector off), "
+        f"a call alone {s['alone_ms']:.4f} ms")
+
+
+def slab_library(args):
+    """The library's K-H without the splice: one out-of-place
+    `Tensor.index_put` per touched field (the evictee rows of a gang field
+    then in place on that copy), the sentinel and out-of-range rows masked
+    off once, here, outside the timed call.  Returns the timed function."""
+    import torch
+
+    from armada_tpu_torch.models.slab import _EV_FIELDS, _RR_FIELDS, _SG_FIELDS
+    from armada_tpu_torch.ops.scatter import jax_index
+
+    (prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, _), kw = args
+    G, RJ = int(prev.g_req.shape[0]), int(prev.run_req.shape[0])
+    base = prev._asdict()
+    base.update(fulls)
+    ev_idx = torch.where(rr_idx >= RJ, torch.full_like(rr_idx, G), rr_idx + int(kw["ev_base"]))
+    groups = []
+    for idx, cols, names, n in ((sg_idx, sg_cols, _SG_FIELDS, G), (rr_idx, rr_cols, _RR_FIELDS, RJ),
+                                (ev_idx, ev_cols, _EV_FIELDS, G)):
+        i, ok = jax_index(idx, n)
+        groups.append((i[ok], {f: cols[f][ok] for f in names}))
+
+    def library():
+        out = dict(base)
+        fresh = set()
+        for i, cols in groups:
+            for f, rows in cols.items():
+                if f in fresh:
+                    out[f].index_put_((i,), rows)
+                else:
+                    out[f] = out[f].index_put((i,), rows)
+                    fresh.add(f)
+        return out
+
+    return library
+
+
+def split_world(dev, world) -> dict:
+    """A warm cycle and one steady cycle of BURST fresh specs (submitted
+    before the steady cycle's bundle, so their rows ride it) over `world`
+    through DeviceDeltaCache (K-H) and run_round_on_device, explain armed:
+    the steady apply's inputs and the explain pass's."""
+    import torch
+
+    from armada_tpu_torch.core.types import RunningJob
+    from armada_tpu_torch.kernels.slab import apply_delta
+    from armada_tpu_torch.models import explain as X
+    from armada_tpu_torch.models import run_round_on_device
+    from armada_tpu_torch.models.incremental import IncrementalBuilder
+    from armada_tpu_torch.models.slab import DeviceDeltaCache
+
+    config, nodes, queues, specs, running, spec_factory = world["world"]
+    builder = IncrementalBuilder(config, "default", queues)
+    builder.set_nodes(nodes)
+    builder.submit_many(specs)
+    builder.lease_many(running)
+    spec_of = {sp.id: sp for sp in specs}
+    cache = DeviceDeltaCache(device=dev)
+    seen = {}
+
+    def recording(*a, **kw):
+        seen["slab"] = (a, kw)
+        return apply_delta(*a, **kw)
+
+    for c in range(2):
+        if c:
+            fresh = spec_factory(BURST, 200.0)
+            for sp in fresh:
+                spec_of[sp.id] = sp
+            builder.submit_many(fresh)
+            cache = cache.fork(recording)
+        bundle, ctx = builder.assemble_delta()
+        dp = cache.apply(bundle)
+        result, outcome = run_round_on_device(bundle.stats_view(), ctx, config, device=dev,
+                                              device_problem=dp, explain_enabled=False)
+        builder.remove_many(outcome.scheduled.keys())
+        builder.lease_many([RunningJob(job=spec_of.pop(j), node_id=n)
+                            for j, n in outcome.scheduled.items() if j in spec_of])
+        for jid in outcome.preempted:
+            builder.unlease(jid)
+    torch.cuda.synchronize()
+    if "slab" not in seen or cache.last_apply != "scatter":
+        raise AssertionError(f"the steady cycle did not scatter ({cache.last_apply})")
+    K, G = int(dp.compat.shape[0]), int(result.g_state.shape[0])
+    return dict(slab=seen["slab"], xin=X.explain_inputs(dp, result, ctx.num_real_gangs),
+                kcap=min(K, X._EXPLAIN_KCAP), fcap=min(G, X._EXPLAIN_FCAP))
+
+
+def kernel_split(state: dict) -> dict:
+    """`call_split` of K-H (the steady apply, its splice included) and of
+    K-J on `split_world`'s state, with the shapes."""
+    from armada_tpu_torch.kernels.explain import explain_round
+    from armada_tpu_torch.kernels.slab import apply_delta
+
+    a, akw = state["slab"]
+    xin, kcap, fcap = state["xin"], state["kcap"], state["fcap"]
+    dp = a[0]
+    out = dict(N=int(dp.node_total.shape[0]), G=int(dp.g_req.shape[0]),
+               RJ=int(dp.run_req.shape[0]), K=int(dp.compat.shape[0]),
+               T=int(dp.compat_pre_type.shape[1]), splice=bool(akw["splice"]),
+               rows=[int(a[1].shape[0]), int(a[3].shape[0])])
+    out["slab"] = call_split(lambda: apply_delta(*a, **akw))
+    log_split("K-H split", out["slab"])
+    out["explain"] = call_split(lambda: explain_round(*xin, kcap=kcap, fcap=fcap))
+    log_split("K-J split", out["explain"])
+    try:
+        out["chain"] = chain_floor(xin)
+    except AttributeError:  # a tree without the add-latency probe (the parent's)
+        pass
+    return out
+
+
+def explain_type_profile(xin, kcap: int, fcap: int) -> dict:
+    """K-J's type kernel tile by tile: csrc/explain.cu built alone with
+    -DEX_TYPE_PROFILE (block 0's clock64 marks: its chain's start and end
+    and the tile's barrier, and the tile's count), one call on `xin`.
+    Returns cycles an add in the chains and the tiles' cycles outside them."""
+    import ctypes
+
+    import torch
+
+    from armada_tpu_torch.kernels import build as kbuild
+    from armada_tpu_torch.kernels.build import check, stream_handle
+    from armada_tpu_torch.kernels.explain import explain_plan
+
+    out = kbuild.BUILD_DIR / f"libexplain-prof-{kbuild._digest()}.so"
+    if not out.exists():
+        done = subprocess.run(
+            [kbuild._nvcc(), *kbuild.FLAGS, "-DEX_TYPE_PROFILE", "-shared", "-o", str(out),
+             str(kbuild.SRC_DIR / "explain.cu")], capture_output=True, text=True, timeout=600)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc of the profile build failed:\n{done.stdout}{done.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.armada_explain.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.armada_explain_type_profile.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    res, call = explain_plan(xin[:-1], xin[-1], kcap=kcap, fcap=fcap)
+    check(lib.armada_explain(call.ctypes.data, stream_handle()), "explain kernel (profile)")
+    torch.cuda.synchronize()
+    marks = np.zeros(4 * 1024, np.int64)
+    check(lib.armada_explain_type_profile(marks.ctypes.data, 1024), "explain profile read")
+    m = marks.reshape(-1, 4)
+    m = m[m[:, 2] != 0]
+    chain = m[:, 1] - m[:, 0]
+    tile = np.diff(m[:, 2], prepend=m[0, 0])
+    adds = int(m[:, 3].sum())
+    prof = dict(tiles=len(m), adds=adds, chain_cycles=int(chain.sum()),
+                tile_cycles=int(tile.sum()), cycles_an_add=float(chain.sum() / max(adds, 1)),
+                outside_chain_cycles=int((tile - chain).sum()))
+    log(f"K-J type kernel, block 0 (profile build): {prof['tiles']} tiles, {adds} adds, "
+        f"{prof['cycles_an_add']:.2f} cycles an add in the chains, {prof['chain_cycles']} of "
+        f"{prof['tile_cycles']} cycles in them")
+    return prof
+
+
+def split_main() -> int:
+    """`python3 chip_smoke.py --split`: build the kernels and the main
+    world, then `kernel_split` at the incremental path's shapes (a JSON
+    line, details in chiprun_out/split.json).  Runs on any tree whose
+    wrappers take these arguments, so one call can split a parent's
+    kernels and a change's."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from armada_tpu_torch.kernels import build as kbuild
+    from armada_tpu_torch.models.synthetic import synthetic_world
+
+    smi = smi_line()
+    log(f"card: {smi}")
+    dev = torch.device("cuda", 0)
+    kbuild.library()
+    world = dict(world=synthetic_world(**MAIN_WORLD))
+    state = split_world(dev, world)
+    out = kernel_split(state)
+    try:
+        out["type_profile"] = explain_type_profile(state["xin"], state["kcap"], state["fcap"])
+    except (AttributeError, ImportError):  # a tree without the profile build (the parent's)
+        pass
+    out["card"] = smi
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "split.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps({k: v for k, v in out.items() if k not in ("slab", "explain")}))
+    print(smi)
+    return 0
+
+
 def incremental_path(dev, world, main_outcome) -> dict:
     """The steady-state incremental cycle over the main path's world:
     IncrementalBuilder -> assemble_delta -> DeviceDeltaCache.apply (K-H) ->
@@ -1569,7 +1989,8 @@ def incremental_path(dev, world, main_outcome) -> dict:
             K = int(dp.compat.shape[0])
             G = int(result.g_state.shape[0])
             kcap, fcap = min(K, X._EXPLAIN_KCAP), min(G, X._EXPLAIN_FCAP)
-            kj_ms, kj = cuda_ms(lambda: explain_round(*xin, kcap=kcap, fcap=fcap), reps=5)
+            kj_ms, kj = cuda_ms_quiet(lambda: explain_round(*xin, kcap=kcap, fcap=fcap),
+                                      reps=SPLIT_REPS)
             kj_plain_ms, kj_plain = cuda_ms(
                 lambda: X.explain_kernel_plain(*xin, kcap=kcap, fcap=fcap), reps=1)
             err_kj = max_err(kj, kj_plain)
@@ -1597,12 +2018,16 @@ def incremental_path(dev, world, main_outcome) -> dict:
 
             # timings at the path's shapes
             a, akw = replay["slab"]
-            kh_ms, kh = cuda_ms(lambda: apply_delta(*a, **akw), reps=10)
+            kh_ms, kh = cuda_ms_quiet(lambda: apply_delta(*a, **akw), reps=SPLIT_REPS)
             kh_plain_ms, kh_plain = cuda_ms(lambda: apply_delta_plain(*a, **akw), reps=3)
             err_kh = problems_equal(kh, kh_plain, "K-H replay vs plain")
             ki_ms, ki = cuda_ms(lambda: verify_round(*last["vin"]), reps=10)
             ki_plain_ms, ki_p = cuda_ms(lambda: V.verify_kernel_plain(*last["vin"]), reps=3)
             err_ki = max_err(ki, ki_p)
+            adversarial = adversarial_checks(replay["slab"], xin, kcap, fcap)
+            kh_turns = slab_in_turns(replay["slab"])
+            split = kernel_split(dict(slab=replay["slab"], xin=xin, kcap=kcap, fcap=fcap))
+            kj_floor = split["chain"]
     finally:
         V.disarm_default(vtok)
         X.disarm_default(etok)
@@ -1611,6 +2036,7 @@ def incremental_path(dev, world, main_outcome) -> dict:
     Q = int(result.q_alloc.shape[0])
     T = int(dp.compat_pre_type.shape[1])
     kh_b = bound_ms(slab_bytes(replay["slab"]), 0)
+    kh_copies = bound_ms(slab_bytes(replay["slab"]) + slab_copy_bytes(replay["slab"]), 0)
     ki_b = bound_ms(tensor_bytes(*[t for t in last["vin"][:-1]]) + 64, 0)
     kj_len = int(kj.numel())
     kj_bytes = tensor_bytes(dp.compat, dp.compat_pre_type, dp.node_type, dp.node_ok,
@@ -1628,12 +2054,19 @@ def incremental_path(dev, world, main_outcome) -> dict:
             max_abs_err=err, equal=err == 0.0, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
             library_ms=None,
         ))
+    rows[0].update(library_ms=kh_turns["library_mean_ms"], bound_with_copies_ms=kh_copies[0],
+                   in_turns=kh_turns)
+    rows[2].update(chain_floor_ms=kj_floor["chain_floor_ms"], chain=kj_floor)
+    log(f"K-H {kh_ms:.4f} ms against its bound {kh_b[0]:.5f} ms ({100 * kh_b[0] / kh_ms:.1f} %) "
+        f"and, with the functional copies, {kh_copies[0]:.5f} ms ({100 * kh_copies[0] / kh_ms:.1f} "
+        f"%); K-J {kj_ms:.4f} ms against its bound {kj_b[0]:.5f} ms ({kj_b[1]}) and its chain "
+        f"floor {kj_floor['chain_floor_ms']:.5f} ms")
     log(f"incremental path kernels: K-H {kh_ms:.4f} ms (plain {kh_plain_ms:.2f}), "
         f"K-I {ki_ms:.4f} ms (plain {ki_plain_ms:.2f}), K-J {kj_ms:.4f} ms "
         f"(plain {kj_plain_ms:.1f}); N={N} G={G} Q={Q} K={K} T={T}")
     return dict(rows=rows, launches=launches, cycles=cycles, checks=checks,
                 load_s=load_s, refused=refused, N=N, G=G, Q=Q, K=K, T=T,
-                plain_round_s=plain_round_s)
+                plain_round_s=plain_round_s, adversarial=adversarial, split=split)
 
 
 # --- the pools path: the multi-pool serving cycle -----------------------------------
@@ -2181,7 +2614,7 @@ LANE_REPS = 20
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
 
 
-def launch_ms(fn, mode: str, flush, reps: int = LANE_REPS) -> float:
+def launch_ms(fn, mode: str, flush, reps: int = LANE_REPS, spin: int = 3_000_000) -> float:
     """Median device milliseconds of fn() alone, CUDA events around each
     call.  mode "cold": `flush` is read before each call, so the L2 holds
     none of fn's bytes and no dirty lines to write back, then a short spin
@@ -2193,7 +2626,7 @@ def launch_ms(fn, mode: str, flush, reps: int = LANE_REPS) -> float:
     fn()
     torch.cuda.synchronize()
     if mode == "hot":
-        torch.cuda._sleep(3_000_000)
+        torch.cuda._sleep(spin)
     marks = []
     for _ in range(reps):
         if mode == "cold":
@@ -3059,12 +3492,16 @@ def mesh_cycle_path(dev, world) -> dict:
         raise AssertionError("the mesh cycle never scattered")
     (a, akw), mesh = replay
     with uncounted():
-        kl_ms, kl = cuda_ms(lambda: apply_delta(*a, **akw, mesh=mesh), reps=10)
+        kl_ms, kl = cuda_ms_quiet(lambda: apply_delta(*a, **akw, mesh=mesh), reps=SPLIT_REPS)
         kl_plain_ms, kl_plain = cuda_ms(lambda: apply_delta_plain(*a, **akw), reps=3)
         problems_equal(kl, kl_plain, "K-H under the mesh cache: replay vs plain")
+    kl_turns = slab_in_turns(replay[0])
     kl_b = bound_ms(slab_bytes(replay[0]), 0)
+    kl_copies = bound_ms(slab_bytes(replay[0]) + slab_copy_bytes(replay[0]), 0)
+    log(f"K-H under the mesh cache: {kl_ms:.4f} ms against its bound {kl_b[0]:.5f} ms and, with "
+        f"the functional copies, {kl_copies[0]:.5f} ms")
     return dict(cycles=cycles, launches=launches, kl_ms=kl_ms, kl_plain_ms=kl_plain_ms,
-                kl_bound=kl_b)
+                kl_bound=kl_b, kl_bound_with_copies=kl_copies[0], kl_turns=kl_turns)
 
 
 def mesh_rows(main_mesh: dict, cyc: dict) -> list:
@@ -3080,7 +3517,9 @@ def mesh_rows(main_mesh: dict, cyc: dict) -> list:
     rows.append(dict(
         name="slab_sharded", route="cuda", source=src, replaces=rep,
         launches=cyc["launches"]["slab_sharded"], max_abs_err=0.0, equal=True, ms=cyc["kl_ms"],
-        plain_ms=cyc["kl_plain_ms"], bound_ms=bms, bound_by=by, library_ms=None))
+        plain_ms=cyc["kl_plain_ms"], bound_ms=bms, bound_by=by,
+        library_ms=cyc["kl_turns"]["library_mean_ms"],
+        bound_with_copies_ms=cyc["kl_bound_with_copies"], in_turns=cyc["kl_turns"]))
     return rows
 
 
@@ -3192,4 +3631,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(split_main() if sys.argv[1:] == ["--split"] else main())

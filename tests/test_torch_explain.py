@@ -135,3 +135,71 @@ def test_explain_cadence_through_the_round():
         assert t.explain.summary() == j.explain.summary()
         assert list(t.explain.iter_job_reasons()) == list(j.explain.iter_job_reasons())
         assert sum(t.explain.failed_counts.values()) == len(t.failed)
+
+
+@pytest.mark.parametrize("case", ["one_type_past_2_24", "empty_type", "t1", "index_rule"])
+def test_explain_adversarial_bit_equal(case):
+    """K-J's adversarial cases, the plain version against the JAX program:
+    every node of one type (that type's sums past 2^24: the longest chain),
+    a type with no nodes, T = 1, and node types outside [0, T) (JAX clamps
+    the compat gathers and drops the per-type scatters)."""
+    rng = np.random.default_rng(11)
+    N, T = 5000, 1 if case == "t1" else 3
+    args = _random_inputs(rng, N, T)
+    nt = args[2]
+    if case == "one_type_past_2_24":
+        nt[:] = 2
+    elif case == "empty_type":
+        nt[nt == 1] = 0
+    elif case == "index_rule":
+        nt[::7] = -1
+        nt[1::11] = T
+        nt[2::13] = T + 5
+        nt[3::17] = -T - 1
+    buf = _both(args, kcap=4, fcap=16)
+    Q, R = 4, 4
+    tff = E._HEADER + 2 * E.NUM_REASONS + Q * E.NUM_REASONS + 3 * 4 + 2 * 16 + 2 * R
+    type_free = buf[tff: tff + T * R].view(np.float32).reshape(T, R)
+    if case == "one_type_past_2_24":
+        assert type_free[2].max() > 2 ** 24 and not type_free[:2].any()
+    if case == "empty_type":
+        assert not type_free[1].any()
+
+
+def test_explain_plan_layout():
+    """K-J's wrapper on CPU tensors, without the launch: the buffer is the
+    head of one arena a call; the argument block holds every input's
+    address, the scratch's 256-aligned addresses after the buffer, the
+    bytes the kernel's memset zeroes (the buffer and the accumulated
+    scratch) and the shapes; the plan is cached by signature; an input of
+    another dtype is refused by name."""
+    from armada_tpu_torch.kernels import explain as KX
+
+    rng = np.random.default_rng(5)
+    args = _random_inputs(rng, 300, 3)
+    ts = [torch.as_tensor(np.asarray(a)) for a in args[:-1]]
+    kcap, fcap = 4, 16
+    out, call = KX.explain_plan(ts, int(args[-1]), kcap=kcap, fcap=fcap)
+    plans = len(KX._PLANS)
+    out2, call2 = KX.explain_plan(ts, int(args[-1]), kcap=kcap, fcap=fcap)
+    assert len(KX._PLANS) == plans
+    K, T = args[0].shape
+    N, R = args[4].shape
+    G, Q = args[13].shape[0], args[15].shape[0]
+    assert out.numel() == E.explain_len(Q, R, T, kcap, fcap) and out.dtype == torch.int32
+    assert out.storage_offset() == 0
+    assert [int(w) for w in call[:16]] == [t.data_ptr() for t in ts]
+    scratch = [int(call[KX.WORD[n]]) for n in KX._SCRATCH]
+    assert scratch[0] == out.data_ptr()
+    assert all(b > a and (b - a) % KX.ALIGN == 0 for a, b in zip(scratch, scratch[1:]))
+    kr = scratch[KX._SCRATCH.index("kr")] - scratch[0]
+    assert call[KX.WORD["zero_bytes"]] == kr + 4 * K * E.NUM_REASONS
+    assert scratch[KX._SCRATCH.index("counts")] - scratch[0] >= call[KX.WORD["zero_bytes"]]
+    words = dict(N=N, R=R, G=G, K=K, T=T, Q=Q, real_g=int(args[-1]), kcap=kcap, fcap=fcap)
+    for k, v in words.items():
+        assert call[KX.WORD[k]] == v, k
+    assert out.untyped_storage().nbytes() >= scratch[-1] - scratch[0]
+    bad = list(ts)
+    bad[7] = bad[7].to(torch.int64)
+    with pytest.raises(TypeError, match="g_card"):
+        KX.explain_plan(bad, int(args[-1]), kcap=kcap, fcap=fcap)

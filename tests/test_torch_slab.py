@@ -109,25 +109,170 @@ def test_apply_plain_equals_jax(splice, seed):
     else:
         gq_args = ()
         fulls["gq_gang"] = rng.permutation(G).astype(np.int32)
+    _apply_both(prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, gq_args,
+                ev_base=ev_base, splice=splice)
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+def _apply_both(prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, gq_args, *, ev_base,
+                splice):
+    """The JAX `apply_delta` program and the plain version on the same
+    inputs (numpy): every field equal, and the previous problem unwritten."""
     jprev = JaxProblem(*(jnp.asarray(a) for a in prev))
     want = _make_apply()(jprev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, gq_args,
                          ev_base=ev_base, splice=splice)
     tprev = problem_from_numpy(prev, "cpu")
     before = {n: getattr(tprev, n).clone() for n in tprev._fields}
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x))
-
     got = apply_delta_plain(
-        tprev, t(sg_idx), {n: t(v) for n, v in sg_cols.items()}, t(rr_idx),
-        {n: t(v) for n, v in rr_cols.items()}, {n: t(v) for n, v in ev_cols.items()},
-        {n: t(v) for n, v in fulls.items()}, tuple(t(a) for a in gq_args),
+        tprev, _t(sg_idx), {n: _t(v) for n, v in sg_cols.items()}, _t(rr_idx),
+        {n: _t(v) for n, v in rr_cols.items()}, {n: _t(v) for n, v in ev_cols.items()},
+        {n: _t(v) for n, v in fulls.items()}, tuple(_t(a) for a in gq_args),
         ev_base=ev_base, splice=splice,
     )
     _assert_problems_equal(got, want)
     # functional: the previous problem's tensors are untouched
     for n in tprev._fields:
         assert torch.equal(getattr(tprev, n), before[n]), n
+    return got
+
+
+def _adversarial(rng, prev, case):
+    """K-H's adversarial inputs: (sg_idx, rr_idx, gq_args, ev_base), index
+    vectors bucket-padded with the sentinels, a splice of 16 entries."""
+    G, RJ = prev.g_req.shape[0], prev.run_req.shape[0]
+    ev_base = G - RJ - 8
+    sg_idx = np.full((32,), G, np.int32)
+    rr_idx = np.full((16,), RJ, np.int32)
+    rem_pos = np.full((16,), G, np.int32)
+    ins_pos = np.full((16,), G, np.int32)
+    ins_val = np.zeros((16,), np.int32)
+    if case != "all_sentinel":
+        run = rng.choice(RJ, 6, replace=False)
+        rr_idx[:6] = run
+        free = np.setdiff1d(np.arange(G), run + ev_base)
+        sg_idx[:12] = rng.choice(free, 12, replace=False)
+        rem_pos[:5] = rng.choice(G, 5, replace=False)
+        ins_pos[:5] = rng.choice(G, 5, replace=False)
+        ins_val[:5] = rng.integers(0, G, 5)
+    if case == "cross_group":
+        sg_idx[12:15] = run[:3] + ev_base  # the evictee rows, a later group, win
+    elif case == "unsorted":
+        sg_idx[[12, 13]] = [-1, -G]  # negative: counted from the end
+        rng.shuffle(sg_idx)
+        rng.shuffle(rr_idx)
+        order = rng.permutation(16)
+        rem_pos, ins_pos, ins_val = rem_pos[::-1].copy(), ins_pos[order], ins_val[order]
+    elif case == "within_group":
+        sg_idx[12:15] = sg_idx[:3]  # the later entry of a group wins (XLA:CPU's loop)
+        rr_idx[6] = rr_idx[0]
+        ins_pos[5], ins_val[5] = ins_pos[0], 12345
+    elif case == "no_inserts":
+        ins_pos[:] = G
+        ins_val[:] = 0
+    elif case == "no_removals":
+        rem_pos[:] = G
+    return sg_idx, rr_idx, (rem_pos, ins_pos, ins_val), ev_base
+
+
+@pytest.mark.parametrize("case", ["cross_group", "unsorted", "within_group", "all_sentinel",
+                                  "no_inserts", "no_removals"])
+def test_apply_plain_equals_jax_adversarial(case):
+    """K-H's adversarial cases, the plain version against the JAX program:
+    a slot written by two groups, index vectors and splice positions out of
+    ascending order (negative ones among them), a slot written twice within
+    a group, groups whose rows are all sentinel, splices with no inserts
+    and with no removals."""
+    rng = np.random.default_rng(7)
+    prev = _random_problem(rng)
+    sg_idx, rr_idx, gq_args, ev_base = _adversarial(rng, prev, case)
+    sg_cols = _rows(rng, prev, _SG_FIELDS, len(sg_idx))
+    rr_cols = _rows(rng, prev, _RR_FIELDS, len(rr_idx))
+    ev_cols = _rows(rng, prev, _EV_FIELDS, len(rr_idx))
+    got = _apply_both(prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, {}, gq_args,
+                      ev_base=ev_base, splice=True)
+    if case == "cross_group":
+        slot = int(sg_idx[12])
+        row = int(np.flatnonzero(rr_idx == slot - ev_base)[0])
+        assert float(got.g_price[slot]) == float(ev_cols["g_price"][row])
+    if case == "all_sentinel":
+        _assert_problems_equal(got._replace(gq_gang=prev.gq_gang),
+                               problem_from_numpy(prev, "cpu"))
+
+
+def _plan_inputs(seed=3, splice=True):
+    """A CPU problem and one apply's padded inputs as tensors."""
+    rng = np.random.default_rng(seed)
+    prev = _random_problem(rng)
+    sg_idx, rr_idx, gq_args, ev_base = _adversarial(rng, prev, "cross_group")
+    cols = [{n: _t(v) for n, v in _rows(rng, prev, names, k).items()}
+            for names, k in ((_SG_FIELDS, len(sg_idx)), (_RR_FIELDS, len(rr_idx)),
+                             (_EV_FIELDS, len(rr_idx)))]
+    tprev = problem_from_numpy(prev, "cpu")
+    gq = tuple(_t(a) for a in gq_args) if splice else ()
+    return (tprev, _t(sg_idx), cols[0], _t(rr_idx), cols[1], cols[2], {}, gq), \
+        dict(ev_base=ev_base, splice=splice)
+
+
+@pytest.mark.parametrize("splice", [True, False])
+def test_apply_plan_layout(splice):
+    """K-H's wrapper on CPU tensors, without the launch: the fresh fields
+    are views of one arena at ALIGN-aligned, disjoint offsets; the other
+    fields are the previous problem's own tensors; the argument block holds
+    every tensor's address, the row bytes, the shapes and a new epoch of the
+    (device, stream, shape) workspace a call; the plan is cached by
+    signature and a row column of another shape is refused by name."""
+    from armada_tpu_torch.kernels import slab as KS
+
+    args, kw = _plan_inputs(splice=splice)
+    prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, _, gq = args
+    out, call, ws = KS.apply_plan(*args, **kw)
+    plans = len(KS._PLANS)
+    out2, call2, ws2 = KS.apply_plan(*args, **kw)
+    assert len(KS._PLANS) == plans and ws2 is ws
+    assert int(call2[KS.WORD["epoch"]]) == int(call[KS.WORD["epoch"]]) + 1
+    gang, run, row_slots = KS._fields()
+    fresh = list(gang + run) + (["gq_gang"] if splice else [])
+    G, RJ = prev.g_req.shape[0], prev.run_req.shape[0]
+    stores = {getattr(out, n).untyped_storage().data_ptr() for n in fresh}
+    assert len(stores) == 1
+    base = stores.pop()
+    spans = []
+    for n in fresh:
+        a, b = getattr(out, n), getattr(prev, n)
+        assert a.shape == b.shape and a.dtype == b.dtype and a.is_contiguous()
+        assert a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr()
+        off = a.data_ptr() - base
+        assert off % KS.ALIGN == 0
+        spans.append((off, off + a.numel() * a.element_size()))
+    spans.sort()
+    assert all(e <= s for (_, e), (s, _) in zip(spans, spans[1:]))
+    for n in prev._fields:
+        if n not in fresh:
+            assert getattr(out, n) is getattr(prev, n), n
+    W = KS._FIELD_WORDS
+    for i, n in enumerate(gang + run):
+        t = getattr(prev, n)
+        assert call[i * W] == t.data_ptr() and call[i * W + 1] == getattr(out, n).data_ptr()
+        assert call[i * W + 4] == t[0].numel() * t.element_size()
+    cols = {"sg": sg_cols, "ev": ev_cols, "rr": rr_cols}
+    for g, n, w in row_slots:
+        assert call[w] == cols[g][n].data_ptr(), (g, n)
+    words = dict(G=G, RJ=RJ, k_sg=len(sg_idx), k_rr=len(rr_idx), ngf=len(gang), nrf=len(run),
+                 ev_base=kw["ev_base"], splice=int(splice), kq=len(gq[0]) if splice else 0)
+    for k, v in words.items():
+        assert call[KS.WORD[k]] == v, k
+    assert call[KS.WORD["sg_idx"]] == sg_idx.data_ptr()
+    assert call[KS.WORD["ws"]] == ws.buf.data_ptr()
+    assert ws.buf.numel() == KS.ws_bytes(G, RJ) and KS.ws_bytes(G, RJ) % 256 == 0
+    if splice:
+        assert call[KS.WORD["gq_prev"]] == prev.gq_gang.data_ptr()
+        assert call[KS.WORD["gq_out"]] == out.gq_gang.data_ptr()
+    bad = dict(sg_cols, g_card=sg_cols["g_card"][:-1])
+    with pytest.raises(ValueError, match="g_card"):
+        KS.apply_plan(prev, sg_idx, bad, rr_idx, rr_cols, ev_cols, {}, gq, **kw)
 
 
 class _BothCaches:
