@@ -122,6 +122,8 @@ def library() -> ctypes.CDLL:
         lib.armada_slab_ws_bytes.restype = ctypes.c_longlong
         lib.armada_verify.argtypes = [vp, vp]
         lib.armada_verify.restype = ci
+        lib.armada_verify_ws_bytes.argtypes = [ctypes.c_longlong] * 4
+        lib.armada_verify_ws_bytes.restype = ctypes.c_longlong
         lib.armada_explain.argtypes = [vp, vp]
         lib.armada_explain.restype = ci
         lib.armada_explain_len.argtypes = [vp]

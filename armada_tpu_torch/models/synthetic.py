@@ -476,3 +476,126 @@ def variety_world(seed: int, *, num_nodes: int = 200, num_jobs: int = 600, num_q
               banned_nodes=banned,
               bid_price_of=(lambda job: prices[job.queue]) if market else None)
     return config, kw
+
+
+def adversarial_verify_cases(args, num_real_gangs: int) -> list:
+    """K-I's adversarial cases on a round's verification inputs (`args`:
+    verify_kernel_plain's 22 tensors, `num_real_gangs` its last argument),
+    as (name, args, num_real_gangs): a slot's gang repeated; slots' gangs
+    negative (counted from the end) and past G (dropped); slots on gangs
+    at and past the real-gang count; n_slots below 0 and above S; NaN and
+    +-inf in alloc0 and in q_alloc, and +-inf alone; no runs (RJ = 0); a
+    compact buffer of length 0 and one of odd length.  The round needs
+    three live slots, three nodes, three queues and two resources."""
+    import torch
+
+    a = list(args)
+    G, S = int(a[11].shape[0]), int(a[12].shape[0])
+    ns = int(a[15])
+    if min(ns, int(a[0].shape[0]), int(a[19].shape[0])) < 3 or int(a[0].shape[1]) < 2:
+        raise ValueError("adversarial_verify_cases: the round is too small")
+    sg = a[12]
+
+    def put(**fields):
+        names = ("node_total", "node_ok", "node_axes", "run_req", "run_node", "run_queue",
+                 "run_valid", "g_req", "g_card", "g_queue", "g_run", "g_state", "slot_gang",
+                 "slot_nodes", "slot_counts", "n_slots", "run_evicted", "run_rescheduled",
+                 "alloc0", "q_alloc", "sched_count", "compact")
+        out = list(a)
+        for k, v in fields.items():
+            out[names.index(k)] = v
+        return out
+
+    def slots(*pairs):
+        t = sg.clone()
+        for i, v in pairs:
+            t[i] = v
+        return t
+
+    def nonfinite(t, cells):
+        t = t.clone()
+        for (i, j), v in cells:
+            t[i, j] = v
+        return t
+
+    nan, inf = float("nan"), float("inf")
+    live = sg[:ns].long()
+    top = int(live.max())
+    compact = a[21]
+    odd = (int(compact.shape[0]) // 2) * 2 - 1
+    return [
+        ("gang_repeated", put(slot_gang=slots((1, int(sg[0])))), num_real_gangs),
+        ("gang_wraps_and_drops",
+         put(slot_gang=slots((0, int(sg[0]) - G), (1, G + 5), (2, -1))), num_real_gangs),
+        ("gang_at_real_count", a, top),
+        ("gang_past_real_count", a, max(top - 1, 0)),
+        ("n_slots_negative", put(n_slots=torch.full_like(a[15], -3)), num_real_gangs),
+        ("n_slots_past_s", put(n_slots=torch.full_like(a[15], S + 4)), num_real_gangs),
+        ("alloc0_nonfinite",
+         put(alloc0=nonfinite(a[18], (((0, 0), nan), ((1, 1), inf), ((2, 0), -inf)))),
+         num_real_gangs),
+        ("q_alloc_nonfinite",
+         put(q_alloc=nonfinite(a[19], (((0, 0), nan), ((1, 0), inf), ((2, 1), -inf)))),
+         num_real_gangs),
+        ("inf_without_nan",
+         put(alloc0=nonfinite(a[18], (((1, 0), inf),)),
+             q_alloc=nonfinite(a[19], (((2, 1), -inf),))), num_real_gangs),
+        ("no_runs", put(**{n: a[i][:0] for i, n in ((3, "run_req"), (4, "run_node"),
+                                                   (5, "run_queue"), (6, "run_valid"),
+                                                   (16, "run_evicted"),
+                                                   (17, "run_rescheduled"))}),
+         num_real_gangs),
+        ("compact_empty", put(compact=compact[:0]), num_real_gangs),
+        ("compact_odd", put(compact=compact[:odd].contiguous()), num_real_gangs),
+    ]
+
+
+def stacked_verify_case(args, num_real_gangs: int, lanes: int = 3):
+    """A stacked K-I input from one case: `lanes` copies of `args` with a
+    lane axis (alloc0 as a [P, 1, N, R] alloc) and per-lane real-gang
+    counts num_real_gangs, -5 and +3 (at least 0), so the lanes differ."""
+    import torch
+
+    st = [torch.stack([t] * lanes) for t in args]
+    st[18] = st[18][:, None].contiguous()
+    reals = [max(int(num_real_gangs) + d, 0) for d in (0, -5, 3, -1, 7)[:lanes]]
+    return st, reals
+
+
+def corrupted_verify_inputs(args, num_real_gangs: int) -> list:
+    """One corruption of a clean round's verification inputs (`args`:
+    verify_kernel_plain's 22 tensors) aimed at each of K-I's eight
+    invariants, as (bit, args): the header's scheduled count, a placed
+    gang's cardinality, its state, a slot's member count, a lane's node,
+    the clean-level allocatable, a queue's allocation, a retained run
+    marked rescheduled."""
+    import torch
+
+    a = list(args)
+    G, N = int(a[11].shape[0]), int(a[0].shape[0])
+    placed = torch.nonzero((a[11] == 1) & (a[10] < 0)
+                           & (torch.arange(G, device=a[11].device) < num_real_gangs)).flatten()
+    kept = torch.nonzero(a[6] & ~a[16]).flatten()
+    if placed.numel() == 0 or kept.numel() == 0 or int(a[15]) < 1:
+        raise ValueError("corrupted_verify_inputs: the round placed no gang or holds no run")
+    g, r = int(placed[0]), int(kept[0])
+
+    def edit(i, fn):
+        out = list(a)
+        out[i] = a[i].clone()
+        fn(out[i])
+        return out
+
+    def add(idx, v):
+        return lambda t: t.__setitem__(idx, t[idx] + v)
+
+    return [
+        (0, edit(20, lambda t: t.add_(7))),
+        (1, edit(8, add(g, 1))),
+        (2, edit(11, lambda t: t.__setitem__(g, 2))),
+        (3, edit(14, add((0, 0), 1))),
+        (4, edit(13, lambda t: t.__setitem__((0, 0), N))),
+        (5, edit(18, add((1, 0), 100.0))),
+        (6, edit(19, add((0, 0), 100.0))),
+        (7, edit(17, lambda t: t.__setitem__(r, True))),
+    ]

@@ -78,6 +78,7 @@ _H_QUEUE_DIFF_BITS = 10
 _H_COMPACT_LEN = 11
 _H_N_EVICTED = 12
 _H_N_RESCHEDULED = 13
+_QNAN_BITS = 0x7FC00000  # a NaN maximum's bits in the buffer
 
 # Invariant bit order is part of the wire layout and the metrics `site`
 # vocabulary: append, never reorder.  The two host-side sites follow.
@@ -307,7 +308,11 @@ def verify_kernel_plain(
     fp_sum = torch.where(fp_sum >= (1 << 31), fp_sum - (1 << 32), fp_sum).to(i32)
 
     def bits(v):
-        return v.to(f32).reshape(()).view(i32)
+        # a NaN maximum as the quiet NaN XLA:CPU writes for it (0x7fc00000):
+        # the payload torch's max leaves differs by device and is not kept
+        v = v.to(f32).reshape(())
+        return torch.where(torch.isnan(v), torch.full((), _QNAN_BITS, dtype=i32, device=dev),
+                           v.view(i32))
 
     out = torch.zeros((_VHEADER,), dtype=i32, device=dev)
     out[_H_VERSION] = _VERSION

@@ -15,12 +15,17 @@ three steady cycles, each kernel held against its plain version on the
 cycle's own state and on adversarial cases at the path's widths (K-H: a
 slot two groups write, unsorted and negative indices, all-sentinel groups,
 splices with no inserts or no removals; K-J: every node of one type, an
-empty type, T = 1, node types outside [0, T)); K-H is timed without the
-splice in turns with index_put per field, each of K-H and K-J split into
-host ms, device operations and device ms by kernel (`call_split`), and
+empty type, T = 1, node types outside [0, T); K-I, solo and stacked:
+slots' gangs repeated, negative or past G or past the real-gang count,
+n_slots outside [0, S], NaN and +-inf in alloc0 and q_alloc, no runs, an
+empty and an odd compact buffer, and a corruption aimed at each invariant
+and at the fingerprint); K-H is timed without the
+splice in turns with index_put per field, each of K-H, K-J and K-I split
+into host ms, device operations and device ms by kernel (`call_split`), and
 K-J's per-type chain floor measured.  A small world runs that path first,
 to fail fast.  `python3 chip_smoke.py --split` runs only that split, on
-the main world's steady apply and explain pass (`split_main`).
+the main world's steady apply, explain pass and verification, and the
+stacked K-I on seven lanes at the pools path's widths (`split_main`).
 Then the pools path: the same world split over 8 pools and driven through
 FairSchedulingAlgo.schedule over a JobDb and an IncrementalProblemFeed, a
 fill and three steady cycles with ARMADA_POOL_PARALLEL=1 (the seven
@@ -70,6 +75,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -167,18 +173,19 @@ def cuda_ms_quiet(fn, reps: int = 3) -> tuple[float, object]:
         gc.enable()
 
 
-def round_profile(fn, attempts: int = 3) -> list:
-    """[(kernel name, launches, device ms)] of one call of fn, largest
-    first, from torch.profiler's CUDA activity.  A session that recorded
-    no device time is run again (seen on the card once in a long script:
-    CUPTI delivered no activity records for the call)."""
+def round_profile(fn, attempts: int = 3, calls: int = 1) -> list:
+    """[(kernel name, launches a call, device ms a call)] of `calls` calls of
+    fn in one session, largest first, from torch.profiler's CUDA activity.
+    A session that recorded no device time is run again (seen on the card:
+    CUPTI delivered no activity records for a short session)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
         rows = []
         for e in prof.key_averages():
@@ -186,7 +193,7 @@ def round_profile(fn, attempts: int = 3) -> list:
             if us is None:
                 us = e.self_cuda_time_total
             if us > 0:
-                rows.append((e.key, e.count, us / 1e3))
+                rows.append((e.key, e.count / calls, us / 1e3 / calls))
         if rows:
             return sorted(rows, key=lambda r: -r[2])
     raise AssertionError("torch.profiler recorded no device time for the round")
@@ -1465,9 +1472,54 @@ def explain_adversarial(xin) -> list:
     return cases
 
 
-def adversarial_checks(slab_args, xin, kcap: int, fcap: int) -> dict:
-    """Each adversarial case of K-H and K-J, kernel against plain on the
-    card, every field / every i32 of the buffer (raises on a difference)."""
+def verify_adversarial(vin) -> dict:
+    """K-I's adversarial cases (models/synthetic.py adversarial_verify_cases)
+    on the incremental path's last verification inputs (its widths): each
+    through the solo kernel and, as a stack of three lanes with different
+    real-gang counts, the stacked one, against the plain versions word for
+    word (raises on a difference).  Returns each case's flags."""
+    from armada_tpu_torch.kernels.verify import (
+        verify_round, verify_round_stacked, verify_round_stacked_plain,
+    )
+    from armada_tpu_torch.models import verify as V
+    from armada_tpu_torch.models.synthetic import (
+        adversarial_verify_cases, corrupted_verify_inputs, stacked_verify_case,
+    )
+
+    def both(a, real) -> tuple:
+        k = verify_round(*a, real)
+        max_err(k, V.verify_kernel_plain(*a, real))
+        st, reals = stacked_verify_case(a, real)
+        ks = verify_round_stacked(*st, reals)
+        max_err(ks, verify_round_stacked_plain(st[:18] + [st[18][:, 0]] + st[19:], reals))
+        return k, ks
+
+    out = {}
+    for name, a, real in adversarial_verify_cases(vin[:-1], vin[-1]):
+        out[name] = [int(x) for x in both(a, real)[1][:, 1]]
+    for bit, a in corrupted_verify_inputs(vin[:-1], vin[-1]):
+        k, ks = both(a, vin[-1])
+        if not (int(k[1]) >> bit) & 1 or not (int(ks[0, 1]) >> bit) & 1:
+            raise AssertionError(f"K-I: the corruption aimed at {V.CHECK_NAMES[bit]} did not "
+                                 f"fire ({int(k[1])}, {int(ks[0, 1])})")
+        out[f"fires_{V.CHECK_NAMES[bit]}"] = int(k[1])
+    clean = verify_round(*vin).cpu().numpy()
+    flipped = vin[21].cpu().numpy().copy()
+    flipped[len(flipped) // 2] ^= np.int32(1 << 20)
+    try:
+        V.verdict_of(clean, types.SimpleNamespace(last_compact_np=flipped))
+        raise AssertionError("K-I: a flipped compact buffer passed the fingerprint")
+    except V.RoundVerificationError as e:
+        if e.sites != (V.SITE_FINGERPRINT,):
+            raise
+    out["fires_fingerprint"] = True
+    return out
+
+
+def adversarial_checks(slab_args, xin, kcap: int, fcap: int, vin) -> dict:
+    """Each adversarial case of K-H, K-J and K-I (solo and stacked), kernel
+    against plain on the card, every field / every i32 of the buffer
+    (raises on a difference)."""
     import torch
 
     from armada_tpu_torch.kernels.explain import explain_round
@@ -1491,6 +1543,7 @@ def adversarial_checks(slab_args, xin, kcap: int, fcap: int) -> dict:
             max_err(k, p)
             torch.cuda.synchronize()
             out[f"explain_{name}"] = time.perf_counter() - t0
+        out.update({f"verify_{k}": v for k, v in verify_adversarial(vin).items()})
     log(f"adversarial cases, kernel equal to plain: {sorted(out)}")
     return out
 
@@ -1547,13 +1600,15 @@ def chain_floor(xin) -> dict:
 
 
 SPLIT_REPS = 20
+SPLIT_PROFILE_CALLS = 5  # calls in one profiler session (one short session can record none)
 
 
 def call_split(fn) -> dict:
     """Where one call of fn goes: host ms of single calls (the stream
     drained before each: the wrapper's plan and enqueue), the device
-    operations (kernels, copies, memsets) of one call and their device ms
-    by name (torch.profiler), the mean over SPLIT_REPS back-to-back calls
+    operations (kernels, copies, memsets) of a call and their device ms by
+    name (torch.profiler, over SPLIT_PROFILE_CALLS calls), the mean over
+    SPLIT_REPS back-to-back calls
     between CUDA events (`cuda_ms`: a host slower than the stream sets its
     pace), and the device ms of a call alone behind a long spin kernel
     (`launch_ms` hot behind a spin of four times the reps' host time: the
@@ -1561,7 +1616,7 @@ def call_split(fn) -> dict:
     host = host_ms(fn, SPLIT_REPS)
     spin = int(4 * SPLIT_REPS * float(np.median(host)) * 2e6)  # ~2 GHz cycles
     try:
-        prof = round_profile(fn)
+        prof = round_profile(fn, attempts=5, calls=SPLIT_PROFILE_CALLS)
     except AssertionError:  # the profiler saw nothing: not measured, not a fault
         prof = None
     return dict(host_ms_median=float(np.median(host)), host_ms_min=min(host),
@@ -1575,7 +1630,7 @@ def call_split(fn) -> dict:
 
 
 def log_split(what: str, s: dict) -> None:
-    top = "; ".join(f"{k[:60]} x{n} {ms:.4f}" for k, n, ms in s["device_ms_by_name"][:8])
+    top = "; ".join(f"{k[:60]} x{n:g} {ms:.4f}" for k, n, ms in s["device_ms_by_name"][:8])
     dev = ("device operations not measured (the profiler saw none)" if s["device_ops"] is None
            else f"{s['device_ops']} device operations, device {s['device_ms_sum']:.4f} ms ({top})")
     log(f"{what}: host {s['host_ms_median']:.4f} ms a call [{s['host_ms_min']:.4f}-"
@@ -1630,7 +1685,8 @@ def split_world(dev, world) -> dict:
     from armada_tpu_torch.core.types import RunningJob
     from armada_tpu_torch.kernels.slab import apply_delta
     from armada_tpu_torch.models import explain as X
-    from armada_tpu_torch.models import run_round_on_device
+    from armada_tpu_torch.models import begin_decode, run_round_on_device
+    from armada_tpu_torch.models import verify as V
     from armada_tpu_torch.models.incremental import IncrementalBuilder
     from armada_tpu_torch.models.slab import DeviceDeltaCache
 
@@ -1667,15 +1723,91 @@ def split_world(dev, world) -> dict:
     if "slab" not in seen or cache.last_apply != "scatter":
         raise AssertionError(f"the steady cycle did not scatter ({cache.last_apply})")
     K, G = int(dp.compat.shape[0]), int(result.g_state.shape[0])
+    fin = begin_decode(result, ctx)
+    fin.fetch()
     return dict(slab=seen["slab"], xin=X.explain_inputs(dp, result, ctx.num_real_gangs),
-                kcap=min(K, X._EXPLAIN_KCAP), fcap=min(G, X._EXPLAIN_FCAP))
+                kcap=min(K, X._EXPLAIN_KCAP), fcap=min(G, X._EXPLAIN_FCAP),
+                vin=V.verify_inputs(dp, result, fin.dispatched[0], ctx.num_real_gangs))
+
+
+# The stacked K-I's split: seven lanes at the pools path's padded widths
+# (N 6,144, G 155,648, RJ 8,192 a lane; synthetic, so the split needs no
+# JobDb of 2M jobs), each lane with other queue weights and node and gang
+# masks (`_lanes_of`), and other real-gang counts.
+SPLIT_STACK = dict(num_nodes=6_144, num_gangs=155_648, num_queues=64, num_runs=8_192, seed=3)
+SPLIT_STACK_LANES = 7
+
+
+def verify_stack_args(dev) -> tuple:
+    """The stacked K-I's arguments on a stacked round (K-E, K-D, K-F) of
+    SPLIT_STACK_LANES lanes of SPLIT_STACK."""
+    from armada_tpu_torch.kernels import lanes as KL
+    from armada_tpu_torch.kernels.compact import compact_result_stacked
+    from armada_tpu_torch.kernels.round import schedule_round_stacked
+    from armada_tpu_torch.models import verify as V
+    from armada_tpu_torch.models.fair_scheduler import round_statics
+    from armada_tpu_torch.models.problem import COMPACT_ECAP, COMPACT_FCAP
+    from armada_tpu_torch.models.state import problem_from_numpy
+    from armada_tpu_torch.models.synthetic import synthetic_problem
+
+    prob, meta = synthetic_problem(**SPLIT_STACK)
+    P = SPLIT_STACK_LANES
+    st = KL.stack(_lanes_of(problem_from_numpy(prob, dev), P))
+    res = schedule_round_stacked(st, **dict(meta, **round_statics(st)))
+    G, RJ = int(st.g_req.shape[1]), int(st.run_req.shape[1])
+    real_g = [G - 7 * i for i in range(P)]
+    kf = compact_result_stacked(res, real_g, [RJ] * P, fcap=min(G, COMPACT_FCAP),
+                                ecap=min(RJ, COMPACT_ECAP))
+    vin = V.verify_inputs(st, res, kf, 0)
+    return (*vin[:18], res.alloc, *vin[19:22], real_g)
+
+
+def verify_bytes(args) -> int:
+    """K-I's bound in bytes: every input read once (of a stacked round's
+    [P, P1, N, R] allocatable, level 0) and the i32[16] rows written once."""
+    ts = list(args[:22])
+    if ts[18].dim() == 4:
+        ts[18] = ts[18][:, 0]
+    return tensor_bytes(*ts) + 64 * (int(ts[11].shape[0]) if ts[11].dim() == 2 else 1)
+
+
+def split_fields(s: dict) -> dict:
+    """A K-I split's fields of the kernels line: host ms of a call, device
+    operations, a call alone and its share of the bound."""
+    return dict(host_ms=s["host_ms_median"], plan_host_ms=s["plan_ms"], device_ops=s["device_ops"],
+                alone_ms=s["alone_ms"], share_of_bound_alone=s["share_of_bound_alone"])
+
+
+def verify_split(what: str, fn, args) -> dict:
+    """`call_split` of a K-I form, with its bound, a call alone's share of
+    it, and the host ms of the wrapper's plan alone (`verify_plan`: checks,
+    the cached plan, the output, the argument block; a tree without it, the
+    parent's, reports None)."""
+    s = call_split(fn)
+    b = bound_ms(verify_bytes(args), 0)[0]
+    s.update(bound_ms=b, share_of_bound_alone=b / s["alone_ms"], plan_ms=None)
+    try:
+        from armada_tpu_torch.kernels.verify import verify_plan
+    except ImportError:
+        verify_plan = None
+    if verify_plan is not None:
+        lanes = int(args[11].shape[0]) if args[11].dim() == 2 else 0
+        s["plan_ms"] = float(np.median(host_ms(lambda: verify_plan(args[:22], args[22],
+                                                                   lanes=lanes), SPLIT_REPS)))
+    log_split(what, s)
+    plan = "" if s["plan_ms"] is None else f"; the plan alone {s['plan_ms']:.4f} ms of host time"
+    log(f"{what}: bound {b:.5f} ms (bytes); a call alone reaches {100 * b / s['alone_ms']:.1f} % "
+        f"of it{plan}")
+    return s
 
 
 def kernel_split(state: dict) -> dict:
-    """`call_split` of K-H (the steady apply, its splice included) and of
-    K-J on `split_world`'s state, with the shapes."""
+    """`call_split` of K-H (the steady apply, its splice included), of K-J
+    and of K-I on `split_world`'s state, with the shapes; and of the
+    stacked K-I on `state["vstack"]` where the state has it."""
     from armada_tpu_torch.kernels.explain import explain_round
     from armada_tpu_torch.kernels.slab import apply_delta
+    from armada_tpu_torch.kernels.verify import verify_round, verify_round_stacked
 
     a, akw = state["slab"]
     xin, kcap, fcap = state["xin"], state["kcap"], state["fcap"]
@@ -1688,6 +1820,18 @@ def kernel_split(state: dict) -> dict:
     log_split("K-H split", out["slab"])
     out["explain"] = call_split(lambda: explain_round(*xin, kcap=kcap, fcap=fcap))
     log_split("K-J split", out["explain"])
+    vin = state["vin"]
+    out["verify"] = verify_split("K-I split", lambda: verify_round(*vin), vin)
+    out["verify_shape"] = dict(S=int(vin[12].shape[0]), W=int(vin[13].shape[1]),
+                               L=int(vin[21].shape[0]), Q=int(vin[19].shape[0]))
+    if "vstack" in state:
+        vs = state["vstack"]
+        out["verify_stacked"] = verify_split("K-I stacked split",
+                                             lambda: verify_round_stacked(*vs), vs)
+        out["verify_stacked_shape"] = dict(
+            P=int(vs[11].shape[0]), N=int(vs[0].shape[1]), G=int(vs[11].shape[1]),
+            RJ=int(vs[3].shape[1]), Q=int(vs[19].shape[1]), S=int(vs[12].shape[1]),
+            W=int(vs[13].shape[2]), L=int(vs[21].shape[1]))
     try:
         out["chain"] = chain_floor(xin)
     except AttributeError:  # a tree without the add-latency probe (the parent's)
@@ -1757,6 +1901,7 @@ def split_main() -> int:
     kbuild.library()
     world = dict(world=synthetic_world(**MAIN_WORLD))
     state = split_world(dev, world)
+    state["vstack"] = verify_stack_args(dev)
     out = kernel_split(state)
     try:
         out["type_profile"] = explain_type_profile(state["xin"], state["kcap"], state["fcap"])
@@ -1766,7 +1911,8 @@ def split_main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "split.json"), "w") as f:
         json.dump(out, f, indent=1)
-    print(json.dumps({k: v for k, v in out.items() if k not in ("slab", "explain")}))
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("slab", "explain", "verify", "verify_stacked")}))
     print(smi)
     return 0
 
@@ -2024,9 +2170,10 @@ def incremental_path(dev, world, main_outcome) -> dict:
             ki_ms, ki = cuda_ms(lambda: verify_round(*last["vin"]), reps=10)
             ki_plain_ms, ki_p = cuda_ms(lambda: V.verify_kernel_plain(*last["vin"]), reps=3)
             err_ki = max_err(ki, ki_p)
-            adversarial = adversarial_checks(replay["slab"], xin, kcap, fcap)
+            adversarial = adversarial_checks(replay["slab"], xin, kcap, fcap, last["vin"])
             kh_turns = slab_in_turns(replay["slab"])
-            split = kernel_split(dict(slab=replay["slab"], xin=xin, kcap=kcap, fcap=fcap))
+            split = kernel_split(dict(slab=replay["slab"], xin=xin, kcap=kcap, fcap=fcap,
+                                      vin=last["vin"]))
             kj_floor = split["chain"]
     finally:
         V.disarm_default(vtok)
@@ -2037,7 +2184,7 @@ def incremental_path(dev, world, main_outcome) -> dict:
     T = int(dp.compat_pre_type.shape[1])
     kh_b = bound_ms(slab_bytes(replay["slab"]), 0)
     kh_copies = bound_ms(slab_bytes(replay["slab"]) + slab_copy_bytes(replay["slab"]), 0)
-    ki_b = bound_ms(tensor_bytes(*[t for t in last["vin"][:-1]]) + 64, 0)
+    ki_b = bound_ms(verify_bytes(last["vin"]), 0)
     kj_len = int(kj.numel())
     kj_bytes = tensor_bytes(dp.compat, dp.compat_pre_type, dp.node_type, dp.node_ok,
                             dp.node_total, dp.node_axes, dp.g_req, dp.g_card, dp.g_queue,
@@ -2057,6 +2204,7 @@ def incremental_path(dev, world, main_outcome) -> dict:
     rows[0].update(library_ms=kh_turns["library_mean_ms"], bound_with_copies_ms=kh_copies[0],
                    in_turns=kh_turns)
     rows[2].update(chain_floor_ms=kj_floor["chain_floor_ms"], chain=kj_floor)
+    rows[1].update(split_fields(split["verify"]))
     log(f"K-H {kh_ms:.4f} ms against its bound {kh_b[0]:.5f} ms ({100 * kh_b[0] / kh_ms:.1f} %) "
         f"and, with the functional copies, {kh_copies[0]:.5f} ms ({100 * kh_copies[0] / kh_ms:.1f} "
         f"%); K-J {kj_ms:.4f} ms against its bound {kj_b[0]:.5f} ms ({kj_b[1]}) and its chain "
@@ -2796,7 +2944,7 @@ def pools_path(dev, world: dict, small: dict) -> dict:
 
     from armada_tpu_torch.kernels import lanes as KL
     from armada_tpu_torch.kernels.compact import compact_result_stacked_plain
-    from armada_tpu_torch.kernels.verify import verify_round_stacked_plain
+    from armada_tpu_torch.kernels.verify import verify_round_stacked, verify_round_stacked_plain
     from armada_tpu_torch.models.fair_scheduler import schedule_round_stacked_plain
 
     spec_factory = world["world"][5]
@@ -2888,9 +3036,11 @@ def pools_path(dev, world: dict, small: dict) -> dict:
     kf_b = bound_ms(tensor_bytes(res.g_state, res.run_evicted, res.run_rescheduled, res.slot_gang,
                                  res.slot_nodes, res.slot_counts) + kf.numel() * 4,
                     P * (G + 2 * RJ))
-    ki_b = bound_ms(tensor_bytes(*[t for t in vargs[:22]]) + 64 * P, 0)
+    ki_b = bound_ms(verify_bytes(vargs), 0)
     with uncounted():
         turns = lanes_in_turns(dps, stacked, ke_b[0], kg_b[0])
+        ki_split = verify_split("K-I stacked split (the pools path's stack)",
+                                lambda: verify_round_stacked(*vargs), vargs)
     ke, kg = turns["stack"], turns["lane_slice"]
     rows = []
     for name, ms, pms, err, (bms, by), lib in (
@@ -2906,6 +3056,7 @@ def pools_path(dev, world: dict, small: dict) -> dict:
             max_abs_err=err, equal=err == 0.0, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
             library_ms=lib,
         ))
+    rows[4].update(split_fields(ki_split))
     for arm in (par, ser):
         arm.pop("decisions")
     return dict(rows=rows, small=small, parallel=par, serial=ser, wall_s=wall_s,

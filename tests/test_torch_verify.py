@@ -226,3 +226,93 @@ def test_armed_round_passes_and_a_corrupted_one_raises(monkeypatch):
     finally:
         V.disarm_default(token)
     assert not V.verify_enabled()
+
+
+_JAX_VERIFY_STACKED = jax.jit(jax.vmap(_verify_kernel_impl))
+
+
+@pytest.fixture(scope="module")
+def clean_round_args():
+    problem, ctx, r, compact = _clean(0, "synthetic")
+    args = [torch.as_tensor(np.array(a)) for a in _inputs(problem, r, compact, ctx.num_real_gangs)]
+    return args[:-1], int(args[-1])
+
+
+_CASES = ("gang_repeated", "gang_wraps_and_drops", "gang_at_real_count", "gang_past_real_count",
+          "n_slots_negative", "n_slots_past_s", "alloc0_nonfinite", "q_alloc_nonfinite",
+          "inf_without_nan", "no_runs", "compact_empty", "compact_odd")
+
+
+@pytest.mark.parametrize("name", _CASES)
+def test_adversarial_case_equals_jax(name, clean_round_args):
+    """K-I's adversarial cases (models/synthetic.py adversarial_verify_cases,
+    which chip_smoke.py holds the kernels to on the card): the plain
+    version equals the JAX package word for word, solo and as a stack of
+    three lanes with different real-gang counts against its jax.vmap."""
+    from armada_tpu_torch.kernels.verify import verify_round_stacked
+    from armada_tpu_torch.models.synthetic import adversarial_verify_cases, stacked_verify_case
+
+    cases = {n: (a, g) for n, a, g in adversarial_verify_cases(*clean_round_args)}
+    assert tuple(cases) == _CASES
+    args, real = cases[name]
+    got = _both([t.numpy() for t in args] + [np.int32(real)])
+    st, reals = stacked_verify_case(args, real)
+    assert len(set(reals)) == 3
+    jargs = [t.numpy() for t in st]
+    jargs[18] = jargs[18][:, 0]
+    want = np.asarray(_JAX_VERIFY_STACKED(*jargs, np.asarray(reals, np.int32)))
+    stacked = verify_round_stacked(*st, reals).numpy()
+    np.testing.assert_array_equal(stacked, want)
+    np.testing.assert_array_equal(stacked[0], got)
+
+
+@pytest.mark.parametrize("bit", range(8))
+def test_corrupted_inputs_fire_their_bit(bit, clean_round_args):
+    """The corruptions chip_smoke.py aims at each invariant on the card
+    (models/synthetic.py corrupted_verify_inputs) raise their bit, in the
+    plain version and the JAX package alike."""
+    from armada_tpu_torch.models.synthetic import corrupted_verify_inputs
+
+    args, real = clean_round_args
+    cases = corrupted_verify_inputs(args, real)
+    assert [b for b, _ in cases] == list(range(8))
+    got = _both([t.numpy() for t in cases[bit][1]] + [np.int32(real)])
+    assert int(got[V._H_FLAGS]) & (1 << bit), (bit, int(got[V._H_FLAGS]))
+
+
+def test_plan_fills_the_argument_block(clean_round_args):
+    """K-I's plan on CPU tensors: the argument block's words (pointers,
+    shapes, the epoch, the real-gang counts by value, a device table only
+    past INLINE lanes), the workspace's size, and the checks."""
+    from armada_tpu_torch.kernels import verify as KV
+    from armada_tpu_torch.models.synthetic import stacked_verify_case
+
+    args, real = clean_round_args
+    out, call, ws, table = KV.verify_plan(args, real)
+    N, R = args[0].shape
+    G, Q, (S, W) = args[11].shape[0], args[19].shape[0], args[13].shape
+    assert out.shape == (16,) and table is None
+    assert [int(call[KV.WORD[n]]) for n in ("N", "R", "RJ", "G", "Q", "S", "W", "L", "lanes")] == [
+        N, R, args[3].shape[0], G, Q, S, W, args[21].shape[0], 1]
+    assert list(call[:len(KV._IN)]) == [t.data_ptr() for t in args]
+    assert call[KV.WORD["out"]] == out.data_ptr() and call[KV.WORD["ws"]] == ws.buf.data_ptr()
+    assert call[KV.WORD["real_inline"]] == real and ws.buf.numel() == KV.ws_lane_bytes(N, R, Q, G)
+    epoch = int(call[KV.WORD["epoch"]])
+    assert int(KV.verify_plan(args, real)[1][KV.WORD["epoch"]]) == epoch + 1
+
+    st, _ = stacked_verify_case(args, real, lanes=1)
+    P = KV.INLINE + 3
+    st = [t.expand((P,) + tuple(t.shape[1:])).contiguous() for t in st]
+    reals = list(range(P))
+    out, call, ws, table = KV.verify_plan(st, reals, lanes=P)
+    assert out.shape == (P, 16) and ws.buf.numel() == P * KV.ws_lane_bytes(N, R, Q, G)
+    assert list(call[KV.WORD["real_inline"]:]) == reals[:KV.INLINE]
+    assert table.tolist() == reals and call[KV.WORD["real_table"]] == table.data_ptr()
+    assert call[KV.WORD["alloc0_stride"]] == N * R
+
+    with pytest.raises(ValueError):
+        KV.verify_plan(args[:3] + [args[3][1:]] + args[4:], real)
+    with pytest.raises(TypeError):
+        KV.verify_plan(args[:11] + [args[11].long()] + args[12:], real)
+    with pytest.raises(ValueError):
+        KV.verify_plan(st, reals[:-1], lanes=P)
