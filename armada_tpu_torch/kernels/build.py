@@ -98,8 +98,10 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.armada_fair_shares.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.armada_fair_shares.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.armada_fair_shares.restype = ci
+        lib.armada_fair_shares_form.argtypes = [ci]
+        lib.armada_fair_shares_form.restype = ci
         lib.armada_round_prologue.argtypes = [vp, vp]
         lib.armada_round_prologue.restype = ci
         lib.armada_round_main.argtypes = [vp, vp, vp, ci, vp]
@@ -116,6 +118,8 @@ def library() -> ctypes.CDLL:
         lib.armada_compact.restype = ci
         lib.armada_compact_args_size.argtypes = []
         lib.armada_compact_args_size.restype = ci
+        lib.armada_compact_ws_words.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+        lib.armada_compact_ws_words.restype = ctypes.c_longlong
         lib.armada_slab_apply.argtypes = [vp, vp]
         lib.armada_slab_apply.restype = ci
         lib.armada_slab_ws_bytes.argtypes = [ctypes.c_longlong, ctypes.c_longlong]

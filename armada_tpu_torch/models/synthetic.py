@@ -599,3 +599,158 @@ def corrupted_verify_inputs(args, num_real_gangs: int) -> list:
         (6, edit(19, add((0, 0), 100.0))),
         (7, edit(17, lambda t: t.__setitem__(r, True))),
     ]
+
+
+# K-A's adversarial widths: the warp form's edges (1, 24; the 8-lane spare
+# sum at 25..32; 33's split padding), the register form's (1,024 / 1,025),
+# the main path's Q and Q + 1 (8,192 / 8,193) and MAX_QUEUES (the global
+# form).
+WATERFILL_ADVERSARIAL_Q = (1, 24, 25, 32, 33, 1_024, 1_025, 8_192, 8_193, 32_768)
+
+
+def waterfill_staircase(Q: int, real: int = 12, max_iterations: int = 10):
+    """(weights, demand shares), f32 [Q], on which the water-fill runs all
+    `max_iterations` iterations: `real` queues weighted 10^-q, queue t's
+    demand just above what it holds before iteration t, so that it (and it
+    alone) saturates there and hands back 99 % of what it received; the
+    last queues want more than the whole pool; the rest weight and demand
+    0 (padding)."""
+    real = min(real, Q)
+    w = 0.1 ** np.arange(real)
+    d = np.full(real, 2.0)
+    held = np.zeros(real)
+    active = np.ones(real, bool)
+    u = 1.0
+    for t in range(min(max_iterations, real - 1)):
+        recv = np.where(active, u * w / w[active].sum(), 0.0)
+        d[t] = held[t] + 0.01 * recv[t]
+        held += recv
+        u = held[t] - d[t]
+        held[t] = d[t]
+        active[t] = False
+    wq = np.zeros(Q, np.float32)
+    dq = np.zeros(Q, np.float32)
+    wq[:real] = w
+    dq[:real] = d
+    return wq, dq
+
+
+def adversarial_fair_share_cases(qs=WATERFILL_ADVERSARIAL_Q, seed: int = 0) -> list:
+    """K-A's adversarial cases as (name, weights, demand shares,
+    max_iterations, expect): f32 [Q] rows or [P, Q] lanes of different rows;
+    `expect` names what the plain version's loop must show (fair_shares_plain
+    `stats`): "iterations" (the count), "first_all" (every queue with a
+    weight achieved in the first iteration).  Random rows (weights with
+    zeros) at every Q in `qs` and a padded row (64 real queues, as the main
+    path's Q = 8,192 holds); all weights zero; every queue achieved in the
+    first iteration; max_iterations reached (10, and 3); an unallocated
+    share that overflows to +inf (demands of -3e38) with padding, whose
+    +0 state then turns NaN; a NaN weight; 1 and 7 lanes with different
+    rows."""
+    rng = np.random.default_rng(seed)
+
+    def rand(shape, real=None):
+        w = rng.choice([0.0, 0.5, 1.0, 2.0, 3.7], shape).astype(np.float32)
+        c = (rng.random(shape) * rng.choice([0.01, 0.1, 1.0], shape)).astype(np.float32)
+        if real is not None:
+            w[..., real:] = 0.0
+            c[..., real:] = 0.0
+        return w, c
+
+    cases = []
+    for q in qs:
+        cases.append((f"random Q={q}", *rand(q), 10, {}))
+        if q > 64:
+            cases.append((f"padded Q={q}", *rand(q, real=64), 10, {}))
+    for q in (25, 33, 8_193):
+        w, c = rand(q)
+        cases.append((f"zero weights Q={q}", np.zeros_like(w), c, 10, {"iterations": 1}))
+    for q in (25, 1_025, 8_192):
+        w, _ = rand(q)
+        w[0] = 1.0
+        cases.append((f"all achieved first Q={q}", w, np.full(q, 1e-9, np.float32), 10,
+                      {"first_all": True}))
+    for q in (33, 8_193):
+        cases.append((f"max iterations Q={q}", *waterfill_staircase(q), 10, {"iterations": 10}))
+        cases.append((f"max iterations 3 Q={q}", *waterfill_staircase(q, max_iterations=3), 3,
+                      {"iterations": 3}))
+    for q in (29, 8_192):
+        w, c = rand(q, real=min(q, 40))
+        w[:4] = 1.0
+        c[:2] = -3e38
+        cases.append((f"infinite unallocated Q={q}", w, c, 10, {}))
+    w, c = rand(8_193)
+    w[5] = np.nan
+    cases.append(("NaN weight Q=8193", w, c, 10, {}))
+    for p, q in ((1, 64), (7, 64), (1, 8_193), (7, 8_193)):
+        w, c = rand((p, q), real=min(q, 64))
+        cases.append((f"{p} lanes Q={q}", w, c, 10, {}))
+    return cases
+
+
+def compact_arrays(G: int, RJ: int, S: int, W: int, *, lanes: int = 0, seed: int = 0,
+                   n_failed=None, all_flags: bool = False) -> dict:
+    """A RoundResult's fields as numpy arrays (a leading lane axis when
+    `lanes`) with random decisions, for the packed decode (K-C, K-F):
+    `n_failed` failed gangs a lane exactly, or every gang failed and every
+    run evicted (`all_flags`)."""
+    rng = np.random.default_rng(seed)
+    lead = (lanes,) if lanes else ()
+    g = rng.integers(0, 4, lead + (G,)).astype(np.int32)
+    if n_failed is not None:
+        g[g == 2] = 1
+        for row in g.reshape(-1, G):
+            row[rng.permutation(G)[:n_failed]] = 2
+    ev = rng.random(lead + (RJ,)) < 0.3
+    rs = rng.random(lead + (RJ,)) < 0.5
+    if all_flags:
+        g[...] = 2
+        ev[...] = True
+
+    def scalar(v, dt):
+        return np.full(lead, v, dt) if lanes else np.asarray(v, dt)
+
+    return dict(
+        g_state=g, slot_gang=rng.integers(0, G + 1, lead + (S,)).astype(np.int32),
+        slot_nodes=rng.integers(-1, 99, lead + (S, W)).astype(np.int32),
+        slot_counts=rng.integers(0, 3, lead + (S, W)).astype(np.int32),
+        n_slots=scalar(max(S - 1, 0), np.int32), run_evicted=ev, run_rescheduled=rs,
+        alloc=np.zeros(lead + (1, 1, 1), np.float32), q_alloc=np.zeros(lead + (1, 1), np.float32),
+        iterations=scalar(1234, np.int32), termination=scalar(1, np.int32),
+        scheduled_count=scalar(999, np.int32), spot_price=scalar(2.5, np.float32),
+        q_killed=np.zeros(lead + (1,), bool), kernel_iters=scalar(77, np.int32),
+    )
+
+
+def adversarial_compact_cases(G: int, RJ: int, S: int, W: int, *, cap: int,
+                              lanes: int = 0) -> list:
+    """The packed decode's adversarial cases at widths (G, RJ, S, W) as
+    (name, arrays, real gangs, real runs, fcap, ecap), ints for a solo
+    buffer and lists for `lanes` lanes: failed gangs at the cap, one past
+    it and none; real counts of 0 and of the whole axis, and caps of the
+    whole axis; every flag set; no runs (RJ = 0, ecap 0); with lanes, real
+    counts that differ lane by lane."""
+    def real(g, r):
+        return (g, r) if not lanes else ([g] * lanes, [r] * lanes)
+
+    fcap, ecap = min(G, cap), min(RJ, cap)
+    cases = []
+    for k, nf in enumerate((fcap, fcap + 1, 0)):
+        if nf <= G:
+            cases.append((f"{nf} failed at fcap {fcap}",
+                          compact_arrays(G, RJ, S, W, lanes=lanes, seed=k, n_failed=nf),
+                          *real(G, RJ), fcap, ecap))
+    base = compact_arrays(G, RJ, S, W, lanes=lanes, seed=3)
+    cases.append(("real counts 0", base, *real(0, 0), fcap, ecap))
+    cases.append(("real counts whole, caps whole", base, *real(G, RJ), G, RJ))
+    cases.append(("every flag set", compact_arrays(G, RJ, S, W, lanes=lanes, seed=4,
+                                                   all_flags=True), *real(G, RJ), fcap, ecap))
+    cases.append(("no runs", compact_arrays(G, 0, S, W, lanes=lanes, seed=5), *real(G, 0),
+                  fcap, 0))
+    if lanes:
+        rng = np.random.default_rng(6)
+        gs = [int(x) for x in rng.integers(0, G + 1, lanes)]
+        rs = [int(x) for x in rng.integers(0, RJ + 1, lanes)]
+        gs[0], rs[-1] = 0, RJ
+        cases.append(("real counts differ by lane", base, gs, rs, fcap, ecap))
+    return cases

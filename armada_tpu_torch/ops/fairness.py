@@ -114,13 +114,15 @@ class FairShares(NamedTuple):
 
 
 def fair_shares_plain(weights: torch.Tensor, cds: torch.Tensor,
-                      max_iterations: int = 10) -> FairShares:
+                      max_iterations: int = 10, *, stats: dict | None = None) -> FairShares:
     """Water-filling over [Q] vectors (the plain version of kernel K-A).
 
     Mirrors the reference's loop exactly, including its iteration-order
     subtleties: the uncapped share update uses the previous iteration's spare
     shares, and the loop ends after the uncapped update once every queue has
-    achieved its demand."""
+    achieved its demand.  `stats`, if given, receives the loop's iteration
+    count ("iterations"), the achieved queues after each ("achieved") and
+    the spare sums taken ("spare_sums": one an iteration that still runs)."""
     zero = torch.zeros_like(weights)
     one = torch.ones_like(weights)
     weight_sum = ordered_sum(weights)
@@ -157,6 +159,11 @@ def fair_shares_plain(weights: torch.Tensor, cds: torch.Tensor,
             else torch.zeros((), dtype=weights.dtype, device=weights.device)
         )
         i += 1
+        if stats is not None:
+            stats.setdefault("achieved", []).append(int(achieved.sum()))
+            stats["spare_sums"] = stats.get("spare_sums", 0) + int(running)
+    if stats is not None:
+        stats["iterations"] = i
     return FairShares(fair_share, dcafs, ucafs)
 
 

@@ -25,7 +25,13 @@ into host ms, device operations and device ms by kernel (`call_split`), and
 K-J's per-type chain floor measured.  A small world runs that path first,
 to fail fast.  `python3 chip_smoke.py --split` runs only that split, on
 the main world's steady apply, explain pass and verification, and the
-stacked K-I on seven lanes at the pools path's widths (`split_main`).
+stacked K-I on seven lanes at the pools path's widths (`split_main`); with
+K-A at the main path's Q = 8,192 and 8,193 and on 7 lanes of 64 (and its
+chain floor), K-C on the steady cycle's round result and K-F on the seven
+lanes.  Before any path, K-A, K-C and K-F are held against their plain
+versions on their adversarial cases (`fair_shares_adversarial`,
+`compact_adversarial`), and the main and pools paths split them beside
+their rows.
 Then the pools path: the same world split over 8 pools and driven through
 FairSchedulingAlgo.schedule over a JobDb and an IncrementalProblemFeed, a
 fill and three steady cycles with ARMADA_POOL_PARALLEL=1 (the seven
@@ -383,48 +389,105 @@ def check_fair_shares(dev) -> dict:
     return out
 
 
-def fake_result(G: int, RJ: int, S: int, W: int, N: int, dev, seed: int = 0):
-    """A RoundResult with random decision masks (for the compaction check)."""
-    import torch
-
-    from armada_tpu_torch.models.fair_scheduler import RoundResult
-
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    i32 = np.int32
-    return RoundResult(
-        g_state=t(rng.integers(0, 4, G).astype(i32)),
-        slot_gang=t(rng.integers(0, G, S).astype(i32)),
-        slot_nodes=t(rng.integers(0, N + 1, (S, W)).astype(i32)),
-        slot_counts=t(rng.integers(0, 3, (S, W)).astype(i32)),
-        n_slots=t(np.int32(S)),
-        run_evicted=t(rng.random(RJ) < 0.3),
-        run_rescheduled=t(rng.random(RJ) < 0.5),
-        alloc=t(np.zeros((1, 1, 1), np.float32)),
-        q_alloc=t(np.zeros((1, 1), np.float32)),
-        iterations=t(np.int32(1234)),
-        termination=t(np.int32(1)),
-        scheduled_count=t(np.int32(999)),
-        spot_price=t(np.float32(2.5)),
-        q_killed=t(np.zeros(1, bool)),
-        kernel_iters=t(np.int32(1234)),
-    )
-
-
 def check_compact(dev) -> None:
     import torch
 
     from armada_tpu_torch.kernels.compact import compact_result
-    from armada_tpu_torch.models.fair_scheduler import compact_result_plain
+    from armada_tpu_torch.models.fair_scheduler import RoundResult, compact_result_plain
+    from armada_tpu_torch.models.synthetic import compact_arrays
 
     G, RJ = 1_048_576, 32_768
-    r = fake_result(G, RJ, 1000, 8, 57_344, dev)
+    r = RoundResult(**{f: torch.as_tensor(v, device=dev)
+                       for f, v in compact_arrays(G, RJ, 1000, 8).items()})
     for real_g, real_r, fcap, ecap in ((G - 1000, RJ - 100, 8192, 8192), (G, RJ, G, RJ)):
         k = compact_result(r, real_g, real_r, fcap=fcap, ecap=ecap)
         p = compact_result_plain(r, real_g, real_r, fcap=fcap, ecap=ecap)
         torch.cuda.synchronize()
         max_err(k, p)
     log(f"K-C compact G={G} RJ={RJ}: kernel == plain (capped and uncapped lists)")
+
+
+def fair_shares_adversarial(dev) -> dict:
+    """K-A on its adversarial cases (models/synthetic.py
+    adversarial_fair_share_cases: every Q of WATERFILL_ADVERSARIAL_Q, all
+    weights zero, every queue achieved in the first iteration, max_iterations
+    reached, an unallocated share that overflows, a NaN weight, 1 and 7
+    lanes), kernel against plain version bit for bit on the card, and each
+    case's loop as its name says (the plain version's iteration count and
+    achieved queues)."""
+    import torch
+
+    from armada_tpu_torch.kernels.fair_shares import (
+        fair_shares, fair_shares_lanes_plain, form_of,
+    )
+    from armada_tpu_torch.models.synthetic import adversarial_fair_share_cases
+    from armada_tpu_torch.ops.fairness import fair_shares_plain
+
+    out = {}
+    for name, w, c, mi, expect in adversarial_fair_share_cases():
+        wt, ct = torch.as_tensor(w, device=dev), torch.as_tensor(c, device=dev)
+        k = fair_shares(wt, ct, max_iterations=mi)
+        if wt.dim() == 2:
+            p = fair_shares_lanes_plain(wt, ct, mi)
+            stats = {}
+        else:
+            stats = {}
+            p = fair_shares_plain(wt, ct, mi, stats=stats)
+        torch.cuda.synchronize()
+        for x, y in zip(k, p):
+            # every bit of every number; a NaN against a NaN (its payload is
+            # the arithmetic unit's, not the algorithm's)
+            nan = torch.isnan(x)
+            if not (torch.equal(nan, torch.isnan(y))
+                    and torch.equal(x.view(torch.int32)[~nan], y.view(torch.int32)[~nan])):
+                raise AssertionError(f"K-A [{name}]: kernel and plain differ")
+        if "iterations" in expect and stats["iterations"] != expect["iterations"]:
+            raise AssertionError(f"K-A [{name}]: {stats['iterations']} iterations, expected "
+                                 f"{expect['iterations']}")
+        if expect.get("first_all") and stats["achieved"][0] != int((wt > 0).sum()):
+            raise AssertionError(f"K-A [{name}]: {stats['achieved'][0]} queues achieved in the "
+                                 "first iteration, not every weighted one")
+        out[name] = dict(form=form_of(int(wt.shape[-1])), iterations=stats.get("iterations"))
+    log(f"K-A fair_shares adversarial: {len(out)} cases, kernel == plain bit for bit (a NaN "
+        f"against a NaN) "
+        f"(forms {sorted({v['form'] for v in out.values()})})")
+    return out
+
+
+def compact_adversarial(dev) -> dict:
+    """K-C and K-F on their adversarial cases (models/synthetic.py
+    adversarial_compact_cases: failed gangs at the cap, one past it and
+    none; real counts of 0 and of the whole axis; every flag set; no runs;
+    lanes with different real counts), at widths that are not multiples of
+    a tile (solo, and 7 lanes at the pools path's widths) and at the main
+    path's (a multiple), word for word against the plain versions."""
+    import torch
+
+    from armada_tpu_torch.kernels.compact import (
+        compact_result, compact_result_stacked, compact_result_stacked_plain,
+    )
+    from armada_tpu_torch.models.fair_scheduler import RoundResult, compact_result_plain
+    from armada_tpu_torch.models.problem import COMPACT_FCAP
+    from armada_tpu_torch.models.synthetic import adversarial_compact_cases
+
+    out = {}
+    for G, RJ, S, W, P in ((1_000_003, 40_961, 1_000, 8, 0), (901_120, 32_768, 1_000, 1, 0),
+                           (155_651, 8_195, 125, 4, 7)):
+        for name, arrs, rg, rr, fcap, ecap in adversarial_compact_cases(G, RJ, S, W,
+                                                                        cap=COMPACT_FCAP,
+                                                                        lanes=P):
+            r = RoundResult(**{f: torch.as_tensor(v, device=dev) for f, v in arrs.items()})
+            if P:
+                k = compact_result_stacked(r, rg, rr, fcap=fcap, ecap=ecap)
+                p = compact_result_stacked_plain(r, rg, rr, fcap=fcap, ecap=ecap)
+            else:
+                k = compact_result(r, rg, rr, fcap=fcap, ecap=ecap)
+                p = compact_result_plain(r, rg, rr, fcap=fcap, ecap=ecap)
+            torch.cuda.synchronize()
+            max_err(k, p)
+            out[f"{name} G={G} RJ={r.run_evicted.shape[-1]} P={P}"] = p[..., 5:8].tolist()
+    log(f"K-C/K-F compact adversarial: {len(out)} cases, kernel == plain word for word")
+    return out
 
 
 def round_forms(p, kw: dict, lanes: int = 0):
@@ -674,17 +737,18 @@ def main_path(dev, world) -> dict:
     # also reads, per iteration, the two allocatable rows of every node and
     # the cursor window of every live queue (those holding gangs): 16 steps of
     # gang index (4 bytes), key (4), key-bad flag (1) and state (4)
-    fa_b = bound_ms(tensor_bytes(dp.q_weight, dp.q_cds) + 3 * Q * 4, 10 * 20 * Q)
+    fa_b = fair_shares_bound(dp.q_weight, dp.q_cds)
     prob_bytes = tensor_bytes(*[getattr(dp, f) for f in dp._fields])
     out_bytes = tensor_bytes(*[getattr(result, f) for f in result._fields])
     live_q = int((dp.q_len > 0).sum())
     per_iter = 2 * N * R * 4 + live_q * 16 * 13
     kb_b = bound_ms(prob_bytes + out_bytes + iters * per_iter, iters * 2 * N * R * 6)
-    kc_b = bound_ms(
-        tensor_bytes(result.g_state, result.run_evicted, result.run_rescheduled,
-                     result.slot_gang, result.slot_nodes, result.slot_counts) + kc.numel() * 4,
-        G + 2 * RJ,
-    )
+    kc_b = compact_bound(result, kc)
+    fa_split = split_bound("K-A split (the main path, Q = 8,192)",
+                           lambda: fair_shares(dp.q_weight, dp.q_cds), fa_b)
+    fa_chain = fair_shares_chain_floor(dp.q_weight, dp.q_cds)
+    kc_split = split_bound("K-C split (the main path)",
+                           lambda: compact_result(*args, fcap=fcap, ecap=ecap), kc_b)
     rows = []
     for name, ms, pms, err, (bms, by) in (
         ("fair_shares", fa_ms, fa_plain_ms, err_fa, fa_b),
@@ -698,6 +762,9 @@ def main_path(dev, world) -> dict:
             library_ms=None,
         ))
     rows[1]["cluster_size"] = cluster
+    rows[0].update(split_fields(fa_split), chain_floor_ms=fa_chain["chain_floor_ms"],
+                   chain=fa_chain)
+    rows[2].update(split_fields(kc_split))
     stages = dict(profile=profile_rows, world_s=world_s, entry_s=entry_s, build_problem_s=build_s,
                   upload_s=upload_s, round_ms=round_ms, decode_s=decode_s,
                   plain_round_ms=plain_round_ms, iterations=iters, N=N, G=G, Q=Q, RJ=RJ,
@@ -789,19 +856,21 @@ def check_loop_kernels(dev) -> dict:
     for statics in (dict(commit_k=LOOP_COMMIT_K), dict(prefer_large=True)):
         key = "stacked " + " ".join(f"{a}={b}" for a, b in statics.items())
         out[key] = _stacked_check("loop lanes (TR > 1)", lanes, lmeta, dev, **statics)
-    out.update(check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta))
+    out.update(check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta, out))
     out.update(check_windows(dev))
     return out
 
 
-def check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta) -> dict:
+def check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta, loop: dict) -> dict:
     """K11, the decision-neutral loop bodies, against the plain version on
     small problems, every RoundResult field: the fit cache at 4 slots (key
     collisions, misses, overwrites) and 64 on the burst problem, an eviction
     world, TR > 1, at commit_k 8 and with prefer-large; the pick chain at
     batch_k 8 with and without TR > 1 and on the eviction world; unroll 4;
     and 3-lane stacks with the cache and with the chain.  Each must also
-    equal the uncached round but for kernel_iters."""
+    equal the uncached round but for kernel_iters: the burst's, the hetero
+    problem's and the prefer-large one's are `loop`'s (check_loop_kernels
+    held those rounds against the plain version already)."""
     from armada_tpu_torch.kernels.round import cache_stats
     from armada_tpu_torch.models.state import problem_from_numpy
     from armada_tpu_torch.models.synthetic import synthetic_problem
@@ -821,7 +890,7 @@ def check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta) -> dict:
         out[f"{name} " + " ".join(f"{a}={b}" for a, b in statics.items())] = info
         return info
 
-    burst = out["burst base"] = check_round("burst", bdp, bmeta, dev)
+    burst = out["burst base"] = loop["burst K=1"]
     for slots in (4, 64):
         if case("burst", bdp, bmeta, burst, cache_slots=slots)["cache_hits"] == 0:
             raise AssertionError(f"the burst's fit cache never hit at {slots} slots")
@@ -838,16 +907,16 @@ def check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta) -> dict:
     ep, ectx = world_problem(KB_EVICT, protected=0.0)
     emeta = round_meta(ectx)
     edp = problem_from_numpy(ep, dev)
-    evict = check_round("eviction world", edp, emeta, dev)
+    evict = out["eviction world"] = check_round("eviction world", edp, emeta, dev)
     case("eviction world", edp, emeta, evict, cache_slots=4)
     case("eviction world", edp, emeta, evict, batch_k=8)
-    het = check_round("hetero", hdp, hmeta, dev)
+    het = loop["hetero K=1"]
     case("hetero", hdp, hmeta, het, cache_slots=4)
     case("hetero", hdp, hmeta, het, cache_slots=64, commit_k=LOOP_COMMIT_K)
     case("hetero", hdp, hmeta, het, batch_k=8)
     sp, smeta = synthetic_problem(**KB_SYNTH)
     sdp = problem_from_numpy(sp, dev)
-    pl = check_round("synthetic_problem", sdp, smeta, dev, prefer_large=True)
+    pl = loop["prefer-large gangs"]
     case("synthetic_problem", sdp, smeta, pl, cache_slots=4, prefer_large=True)
     for statics in (dict(cache_slots=4), dict(batch_k=8)):
         key = "stacked " + " ".join(f"{a}={b}" for a, b in statics.items())
@@ -1570,33 +1639,81 @@ def slab_in_turns(args, reps: int = 10) -> dict:
                 kernel_mean_ms=(k1 + k2) / 2)
 
 
-def chain_floor(xin) -> dict:
-    """K-J's chain floor: the longest type's node count (node_type under
-    the scatter's rule) x the f32 add's dependent latency, measured on the
-    card (`armada_fadd_cycles`, clock64 around a chain of 2^20 adds), over
-    the card's maximum SM clock from nvidia-smi."""
+def fadd_latency(device) -> tuple:
+    """(cycles, max MHz, current MHz): the f32 add's dependent latency,
+    measured on the card (`armada_fadd_cycles`, clock64 around a chain of
+    2^20 adds), and the card's maximum and current SM clocks from
+    nvidia-smi."""
     import torch
 
     from armada_tpu_torch.kernels.build import check, library, stream_handle
+
+    buf = torch.zeros(2, dtype=torch.int64, device=device)
+    n = 1 << 20
+    check(library().armada_fadd_cycles(buf.data_ptr(), n, stream_handle()), "fadd chain")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    mhz_max, mhz_now = (float(v) for v in smi.stdout.strip().splitlines()[0].split(","))
+    return int(buf[0]) / n, mhz_max, mhz_now
+
+
+def chain_floor(xin) -> dict:
+    """K-J's chain floor: the longest type's node count (node_type under
+    the scatter's rule) x the f32 add's dependent latency over the card's
+    maximum SM clock (`fadd_latency`)."""
+    import torch
 
     T = int(xin[0].shape[1])
     nt = xin[2].long()
     nt = torch.where(nt < 0, nt + T, nt)
     counts = torch.bincount(nt[(nt >= 0) & (nt < T)], minlength=T)
     longest = int(counts.max())
-    buf = torch.zeros(2, dtype=torch.int64, device=xin[2].device)
-    n = 1 << 20
-    check(library().armada_fadd_cycles(buf.data_ptr(), n, stream_handle()), "fadd chain")
-    cycles = int(buf[0]) / n
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
-                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
-                         timeout=60)
-    mhz_max, mhz_now = (float(v) for v in smi.stdout.strip().splitlines()[0].split(","))
+    cycles, mhz_max, mhz_now = fadd_latency(xin[2].device)
     ms = longest * cycles / (mhz_max * 1e3)
     log(f"K-J chain floor: longest type {longest} nodes x {cycles:.3f} cycles an add / "
         f"{mhz_max:.0f} MHz (nvidia-smi clocks.max.sm; clocks.sm {mhz_now:.0f}) = {ms:.5f} ms")
     return dict(longest_type_nodes=longest, fadd_cycles=cycles, sm_clock_max_mhz=mhz_max,
                 sm_clock_now_mhz=mhz_now, chain_floor_ms=ms)
+
+
+def ordered_sum_chain(n: int) -> int:
+    """Dependent adds of an ordered sum of n values (ops/fairness.py
+    ordered_sum): a window of 32 a level, then the last <= 32."""
+    return n if n <= 32 else 32 + ordered_sum_chain(-(-n // 32))
+
+
+def fair_shares_chain_floor(w, c) -> dict | None:
+    """K-A's chain floor on rows (w, c), [Q] or [P, Q]: the dependent adds
+    of the ordered sums these rows need (the plain version's count, the
+    longest lane's: the weights' sum, which is also the first iteration's
+    total active weight, the later iterations' totals, and a spare sum an
+    iteration that still runs; `ordered_sum_chain(Q)` adds each) x the f32
+    add's latency over the card's maximum SM clock.  None on a tree whose
+    plain version does not count them (the parent's)."""
+    from armada_tpu_torch.ops.fairness import fair_shares_plain
+
+    rows = (w, c) if w.dim() == 2 else (w[None], c[None])
+    its, sums = [], []
+    for wi, ci in zip(*(r.cpu() for r in rows)):
+        stats: dict = {}
+        try:
+            fair_shares_plain(wi, ci, stats=stats)
+        except TypeError:
+            return None
+        its.append(stats["iterations"])
+        sums.append(max(stats["iterations"], 1) + stats.get("spare_sums", 0))
+    Q = int(w.shape[-1])
+    sums = max(sums)
+    adds = sums * ordered_sum_chain(Q)
+    cycles, mhz_max, mhz_now = fadd_latency(w.device)
+    ms = adds * cycles / (mhz_max * 1e3)
+    log(f"K-A chain floor at Q={Q}: {max(its)} iterations, {sums} sums of "
+        f"{ordered_sum_chain(Q)} dependent adds x {cycles:.3f} cycles an add / {mhz_max:.0f} MHz "
+        f"= {ms:.5f} ms")
+    return dict(iterations=max(its), sums=sums, adds_a_sum=ordered_sum_chain(Q), adds=adds,
+                fadd_cycles=cycles, sm_clock_max_mhz=mhz_max, sm_clock_now_mhz=mhz_now,
+                chain_floor_ms=ms)
 
 
 SPLIT_REPS = 20
@@ -1725,7 +1842,9 @@ def split_world(dev, world) -> dict:
     K, G = int(dp.compat.shape[0]), int(result.g_state.shape[0])
     fin = begin_decode(result, ctx)
     fin.fetch()
-    return dict(slab=seen["slab"], xin=X.explain_inputs(dp, result, ctx.num_real_gangs),
+    return dict(slab=seen["slab"], q=(dp.q_weight, dp.q_cds),
+                kc=(result, ctx.num_real_gangs, ctx.num_real_runs),
+                xin=X.explain_inputs(dp, result, ctx.num_real_gangs),
                 kcap=min(K, X._EXPLAIN_KCAP), fcap=min(G, X._EXPLAIN_FCAP),
                 vin=V.verify_inputs(dp, result, fin.dispatched[0], ctx.num_real_gangs))
 
@@ -1738,9 +1857,10 @@ SPLIT_STACK = dict(num_nodes=6_144, num_gangs=155_648, num_queues=64, num_runs=8
 SPLIT_STACK_LANES = 7
 
 
-def verify_stack_args(dev) -> tuple:
-    """The stacked K-I's arguments on a stacked round (K-E, K-D, K-F) of
-    SPLIT_STACK_LANES lanes of SPLIT_STACK."""
+def stack_split_args(dev) -> tuple:
+    """(the stacked K-I's arguments, K-F's: the stacked result, real gang
+    and run counts, fcap, ecap) on a stacked round (K-E, K-D, K-F) of
+    SPLIT_STACK_LANES lanes of SPLIT_STACK, with other real counts a lane."""
     from armada_tpu_torch.kernels import lanes as KL
     from armada_tpu_torch.kernels.compact import compact_result_stacked
     from armada_tpu_torch.kernels.round import schedule_round_stacked
@@ -1756,10 +1876,11 @@ def verify_stack_args(dev) -> tuple:
     res = schedule_round_stacked(st, **dict(meta, **round_statics(st)))
     G, RJ = int(st.g_req.shape[1]), int(st.run_req.shape[1])
     real_g = [G - 7 * i for i in range(P)]
-    kf = compact_result_stacked(res, real_g, [RJ] * P, fcap=min(G, COMPACT_FCAP),
-                                ecap=min(RJ, COMPACT_ECAP))
+    real_r = [RJ - 3 * i for i in range(P)]
+    fcap, ecap = min(G, COMPACT_FCAP), min(RJ, COMPACT_ECAP)
+    kf = compact_result_stacked(res, real_g, real_r, fcap=fcap, ecap=ecap)
     vin = V.verify_inputs(st, res, kf, 0)
-    return (*vin[:18], res.alloc, *vin[19:22], real_g)
+    return (*vin[:18], res.alloc, *vin[19:22], real_g), (res, real_g, real_r, fcap, ecap)
 
 
 def verify_bytes(args) -> int:
@@ -1772,20 +1893,97 @@ def verify_bytes(args) -> int:
 
 
 def split_fields(s: dict) -> dict:
-    """A K-I split's fields of the kernels line: host ms of a call, device
+    """A split's fields of the kernels line: host ms of a call, device
     operations, a call alone and its share of the bound."""
     return dict(host_ms=s["host_ms_median"], plan_host_ms=s["plan_ms"], device_ops=s["device_ops"],
                 alone_ms=s["alone_ms"], share_of_bound_alone=s["share_of_bound_alone"])
 
 
-def verify_split(what: str, fn, args) -> dict:
-    """`call_split` of a K-I form, with its bound, a call alone's share of
-    it, and the host ms of the wrapper's plan alone (`verify_plan`: checks,
-    the cached plan, the output, the argument block; a tree without it, the
-    parent's, reports None)."""
+def split_bound(what: str, fn, bound: tuple) -> dict:
+    """`call_split` of fn with its bound (`bound_ms`'s pair) and a call
+    alone's share of it."""
     s = call_split(fn)
-    b = bound_ms(verify_bytes(args), 0)[0]
-    s.update(bound_ms=b, share_of_bound_alone=b / s["alone_ms"], plan_ms=None)
+    b, by = bound
+    s.update(bound_ms=b, bound_by=by, share_of_bound_alone=b / s["alone_ms"], plan_ms=None)
+    log_split(what, s)
+    log(f"{what}: bound {b:.6f} ms ({by}); a call alone reaches {100 * b / s['alone_ms']:.2f} % "
+        "of it")
+    return s
+
+
+def compact_bound(res, buf) -> tuple:
+    """K-C's or K-F's bound on a (stacked) round result and its buffer: the
+    flags and slots read once, the buffer written once; a flag an
+    operation."""
+    return bound_ms(tensor_bytes(res.g_state, res.run_evicted, res.run_rescheduled,
+                                 res.slot_gang, res.slot_nodes, res.slot_counts) + buf.numel() * 4,
+                    res.g_state.numel() + 2 * res.run_evicted.numel())
+
+
+def fair_shares_bound(w, c) -> tuple:
+    """K-A's bound on rows (w, c): two rows in, three out; ~20 operations a
+    queue an iteration over 10 iterations."""
+    return bound_ms(tensor_bytes(w, c) + 3 * w.numel() * 4, 10 * 20 * w.numel())
+
+
+def decode_fairness_split(state: dict) -> dict:
+    """`split_bound` of K-A at the main path's Q = 8,192 (the split world's
+    queue rows padded with zero-weight queues, as build_problem pads them)
+    and Q + 1 = 8,193 (an indicative share's new queue: theoretical_share
+    at priority 1), and with the pools path's lane axis (7 lanes of the
+    first 64 rows, rolled lane by lane), each with its chain floor; of K-C on
+    the split world's round result; of K-F on `state["fstack"]`."""
+    import torch
+
+    from armada_tpu_torch.kernels.compact import compact_result, compact_result_stacked
+    from armada_tpu_torch.kernels.fair_shares import fair_shares
+
+    w, c = state["q"]
+    dev = w.device
+
+    def pad(x, n):
+        return torch.cat([x, torch.zeros(n - int(x.shape[0]), dtype=x.dtype, device=dev)])
+
+    one = torch.ones(1, dtype=w.dtype, device=dev)
+    w8, c8 = pad(w, 8_192), pad(c, 8_192)
+    rows = {"Q=8192": (w8, c8), "Q=8193": (torch.cat([w8, one]), torch.cat([c8, one])),
+            "7x64": tuple(torch.stack([torch.roll(x[:64], i) for i in range(7)]) for x in (w, c))}
+    out = {}
+    for key, (a, b) in rows.items():
+        s = split_bound(f"K-A split {key}", lambda a=a, b=b: fair_shares(a, b),
+                        fair_shares_bound(a, b))
+        s["chain"] = fair_shares_chain_floor(a, b)
+        out[f"fair_shares {key}"] = s
+    res, rg, rr = state["kc"]
+    G, RJ = int(res.g_state.shape[0]), int(res.run_evicted.shape[0])
+    from armada_tpu_torch.models.problem import COMPACT_ECAP, COMPACT_FCAP
+
+    fcap, ecap = min(G, COMPACT_FCAP), min(RJ, COMPACT_ECAP)
+
+    def kc():
+        return compact_result(res, rg, rr, fcap=fcap, ecap=ecap)
+
+    out["compact"] = split_bound("K-C split", kc, compact_bound(res, kc()))
+    out["compact"]["shape"] = dict(G=G, RJ=RJ, S=int(res.slot_gang.shape[0]),
+                                   W=int(res.slot_nodes.shape[1]), fcap=fcap, ecap=ecap)
+    fres, frg, frr, ffcap, fecap = state["fstack"]
+
+    def kf():
+        return compact_result_stacked(fres, frg, frr, fcap=ffcap, ecap=fecap)
+
+    out["compact_stacked"] = split_bound("K-F split", kf, compact_bound(fres, kf()))
+    out["compact_stacked"]["shape"] = dict(
+        P=int(fres.g_state.shape[0]), G=int(fres.g_state.shape[1]),
+        RJ=int(fres.run_evicted.shape[1]), S=int(fres.slot_gang.shape[1]),
+        W=int(fres.slot_nodes.shape[2]), fcap=ffcap, ecap=fecap)
+    return out
+
+
+def verify_split(what: str, fn, args) -> dict:
+    """`split_bound` of a K-I form, and the host ms of the wrapper's plan
+    alone (`verify_plan`: checks, the cached plan, the output, the argument
+    block; a tree without it, the parent's, reports None)."""
+    s = split_bound(what, fn, bound_ms(verify_bytes(args), 0))
     try:
         from armada_tpu_torch.kernels.verify import verify_plan
     except ImportError:
@@ -1794,10 +1992,7 @@ def verify_split(what: str, fn, args) -> dict:
         lanes = int(args[11].shape[0]) if args[11].dim() == 2 else 0
         s["plan_ms"] = float(np.median(host_ms(lambda: verify_plan(args[:22], args[22],
                                                                    lanes=lanes), SPLIT_REPS)))
-    log_split(what, s)
-    plan = "" if s["plan_ms"] is None else f"; the plan alone {s['plan_ms']:.4f} ms of host time"
-    log(f"{what}: bound {b:.5f} ms (bytes); a call alone reaches {100 * b / s['alone_ms']:.1f} % "
-        f"of it{plan}")
+        log(f"{what}: the plan alone {s['plan_ms']:.4f} ms of host time")
     return s
 
 
@@ -1901,8 +2096,9 @@ def split_main() -> int:
     kbuild.library()
     world = dict(world=synthetic_world(**MAIN_WORLD))
     state = split_world(dev, world)
-    state["vstack"] = verify_stack_args(dev)
+    state["vstack"], state["fstack"] = stack_split_args(dev)
     out = kernel_split(state)
+    out["decode_fairness"] = decode_fairness_split(state)
     try:
         out["type_profile"] = explain_type_profile(state["xin"], state["kcap"], state["fcap"])
     except (AttributeError, ImportError):  # a tree without the profile build (the parent's)
@@ -1912,7 +2108,12 @@ def split_main() -> int:
     with open(os.path.join("chiprun_out", "split.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps({k: v for k, v in out.items()
-                      if k not in ("slab", "explain", "verify", "verify_stacked")}))
+                      if k not in ("slab", "explain", "verify", "verify_stacked",
+                                   "decode_fairness")}))
+    print(json.dumps({"decode_fairness": {
+        k: {f: v.get(f) for f in ("host_ms_median", "device_ops", "device_ms_sum", "events_ms",
+                                  "alone_ms", "bound_ms", "share_of_bound_alone")}
+        for k, v in out["decode_fairness"].items()}}))
     print(smi)
     return 0
 
@@ -2943,7 +3144,9 @@ def pools_path(dev, world: dict, small: dict) -> dict:
     import torch
 
     from armada_tpu_torch.kernels import lanes as KL
-    from armada_tpu_torch.kernels.compact import compact_result_stacked_plain
+    from armada_tpu_torch.kernels.compact import (
+        compact_result_stacked, compact_result_stacked_plain,
+    )
     from armada_tpu_torch.kernels.verify import verify_round_stacked, verify_round_stacked_plain
     from armada_tpu_torch.models.fair_scheduler import schedule_round_stacked_plain
 
@@ -3033,14 +3236,15 @@ def pools_path(dev, world: dict, small: dict) -> dict:
                     iters * 2 * N * R * 6)
     ke_b = bound_ms(2 * prob_bytes, 0)
     kg_b = bound_ms(2 * prob_bytes // P, 0)
-    kf_b = bound_ms(tensor_bytes(res.g_state, res.run_evicted, res.run_rescheduled, res.slot_gang,
-                                 res.slot_nodes, res.slot_counts) + kf.numel() * 4,
-                    P * (G + 2 * RJ))
+    kf_b = compact_bound(res, kf)
     ki_b = bound_ms(verify_bytes(vargs), 0)
     with uncounted():
         turns = lanes_in_turns(dps, stacked, ke_b[0], kg_b[0])
         ki_split = verify_split("K-I stacked split (the pools path's stack)",
                                 lambda: verify_round_stacked(*vargs), vargs)
+        kf_split = split_bound(
+            "K-F split (the pools path's stack)",
+            lambda: compact_result_stacked(res, [G] * P, [RJ] * P, fcap=fcap, ecap=ecap), kf_b)
     ke, kg = turns["stack"], turns["lane_slice"]
     rows = []
     for name, ms, pms, err, (bms, by), lib in (
@@ -3057,6 +3261,7 @@ def pools_path(dev, world: dict, small: dict) -> dict:
             library_ms=lib,
         ))
     rows[4].update(split_fields(ki_split))
+    rows[2].update(split_fields(kf_split))
     for arm in (par, ser):
         arm.pop("decisions")
     return dict(rows=rows, small=small, parallel=par, serial=ser, wall_s=wall_s,
@@ -3337,8 +3542,10 @@ MESH_EVICT = dict(num_nodes=2_048, num_jobs=20_000, num_queues=32, num_runs=4_00
 # one whose [E x E] tables exceed the card's memory
 WIDE_K = 32
 WIDE_BEYOND = 1 << 20
-# the round's own water-fill at Q that are not multiples of 32
-WATERFILL_Q = tuple(q for q in range(25, 64) if q != 32)
+# the round's own water-fill at Q that are not multiples of 32: the 8-lane
+# spare sum (25..31) and two windows with the padding split (33..63), each
+# padding parity and its ends
+WATERFILL_Q = (25, 28, 31, 33, 34, 47, 48, 62, 63)
 
 
 def _mesh(dev, shards: int):
@@ -3703,7 +3910,9 @@ def main() -> int:
         log(f"phase {name}: {phase_s[name]:.1f} s")
 
     report["fair_shares"] = check_fair_shares(dev)
+    report["fair_shares_adversarial"] = fair_shares_adversarial(dev)
     check_compact(dev)
+    report["compact_adversarial"] = compact_adversarial(dev)
     pools_small = check_pool_kernels(dev)
     mark("small pool kernels")
     loop_small = check_loop_kernels(dev)
@@ -3714,8 +3923,9 @@ def main() -> int:
     report["round_synthetic"] = check_round("synthetic_problem", sp, meta, dev)
     mp, mctx = world_problem(KB_MARKET)
     report["round_market"] = check_round("market world", mp, round_meta(mctx), dev)
-    ep, ectx = world_problem(KB_EVICT, protected=0.0)
-    report["round_evict"] = check_round("eviction world", ep, round_meta(ectx), dev)
+    # the eviction world's round was held against the plain version by
+    # check_k11_kernels (the same world, the same statics)
+    report["round_evict"] = loop_small["eviction world"]
     if report["round_evict"]["evicted"] == 0:
         raise AssertionError("the eviction world evicted nothing")
     from armada_tpu_torch.models.problem import build_problem

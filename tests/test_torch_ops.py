@@ -171,3 +171,81 @@ def test_theoretical_share_padded(Q):
     for prio in (1.0, 2.0, 3.0):
         assert jfair.theoretical_share(w, cds, prio) == tfair.theoretical_share(
             _t(w), _t(cds), prio)
+
+
+def _padded(Q, real, seed):
+    rng = np.random.default_rng(seed)
+    w = np.zeros(Q, np.float32)
+    cds = np.zeros(Q, np.float32)
+    w[:real] = rng.choice([0.5, 1.0, 2.0, 3.7], real)
+    cds[:real] = rng.random(real) * rng.choice([0.001, 0.01, 0.1], real)
+    return w, cds
+
+
+@pytest.mark.parametrize("Q", [1025, 8192, 8193])
+def test_fair_shares_full_vectors(Q):
+    """K-A's plain version against the JAX package's fair_shares in every
+    element of all three vectors, at the register form's first width and
+    the main path's Q and Q + 1, on a padded row (64 real queues, as a
+    round's stats pass it) and on a dense one."""
+    for w, cds in (_padded(Q, 64, Q), _padded(Q, Q, Q + 1)):
+        for a, b in zip(jfair.fair_shares(w, cds), tfair.fair_shares(_t(w), _t(cds))):
+            _eq(a, b)
+
+
+@pytest.mark.parametrize("P,Q", [(7, 64), (3, 8193)])
+def test_fair_shares_lanes_equal_jax_vmap(P, Q):
+    """The [P, Q] lane form (the pools path's K-A) against jax.vmap of the
+    JAX package's fair_shares, every lane with other rows."""
+    from armada_tpu_torch.kernels.fair_shares import fair_shares as lanes_form
+
+    rows = [_padded(Q, 40 + 3 * i, 10 * P + i) for i in range(P)]
+    w = np.stack([r[0] for r in rows])
+    cds = np.stack([r[1] for r in rows])
+    j = jax.vmap(jfair.fair_shares)(w, cds)
+    for a, b in zip(j, lanes_form(_t(w), _t(cds))):
+        _eq(a, b)
+
+
+_ADVERSARIAL = None
+
+
+def _adversarial_fair_share_cases():
+    global _ADVERSARIAL
+    if _ADVERSARIAL is None:
+        from armada_tpu_torch.models.synthetic import adversarial_fair_share_cases
+
+        _ADVERSARIAL = {c[0]: c[1:] for c in adversarial_fair_share_cases()
+                        if c[1].ndim == 1 and c[1].shape[0] <= 8_193}
+    return _ADVERSARIAL
+
+
+@pytest.mark.parametrize("name", [
+    "zero weights Q=25", "all achieved first Q=1025", "max iterations Q=33",
+    "max iterations 3 Q=8193", "infinite unallocated Q=29", "infinite unallocated Q=8192",
+    "NaN weight Q=8193", "random Q=24",
+])
+def test_fair_shares_adversarial_equal_jax(name):
+    """K-A's adversarial cases (models/synthetic.py, the ones chip_smoke.py
+    holds the kernel to on the card) through the plain version and the JAX
+    package, every element, and each case's loop as its name says."""
+    w, cds, max_iterations, expect = _adversarial_fair_share_cases()[name]
+    j = jfair.fair_shares(w, cds, max_iterations=max_iterations)
+    stats = {}
+    t = tfair.fair_shares_plain(_t(w), _t(cds), max_iterations, stats=stats)
+    for a, b in zip(j, t):
+        _eq(a, b)
+    if "iterations" in expect:
+        assert stats["iterations"] == expect["iterations"]
+    if expect.get("first_all"):
+        assert stats["achieved"][0] == int((w > 0).sum())
+
+
+def test_fair_shares_forms():
+    """The kernel's form by width (kernels/fair_shares.py form_of, which the
+    library checks against csrc/fair_shares.cu on the card)."""
+    from armada_tpu_torch.kernels.fair_shares import MAX_QUEUES, form_of
+
+    assert [form_of(q) for q in (1, 24, 32, 33, 1024)] == ["warp"] * 5
+    assert [form_of(q) for q in (1025, 8192, 8193, 8448)] == ["shared"] * 4
+    assert [form_of(q) for q in (8449, MAX_QUEUES)] == ["global"] * 2

@@ -318,6 +318,106 @@ def test_stacked_decode_and_verify_equal_jax():
         assert t_verify.verdict_of(tver.numpy()[j], ctx)["ok"]
 
 
+_CAP_EDGE_WIDTHS = dict(G=9_001, RJ=4_099, S=7, W=3, cap=1_000)
+_CAP_EDGE_LANES = 5
+
+
+def _cap_edge_cases(lanes):
+    from armada_tpu_torch.models.synthetic import adversarial_compact_cases
+
+    w = _CAP_EDGE_WIDTHS
+    return {c[0]: c[1:] for c in adversarial_compact_cases(w["G"], w["RJ"], w["S"], w["W"],
+                                                           cap=w["cap"], lanes=lanes)}
+
+
+@pytest.mark.parametrize("name", ["1000 failed at fcap 1000", "1001 failed at fcap 1000",
+                                  "0 failed at fcap 1000", "real counts 0",
+                                  "real counts whole, caps whole", "every flag set", "no runs"])
+def test_compact_cap_edges_equal_jax(name):
+    """K-C's plain version against JAX `compact_result` word for word at the
+    cap edges (models/synthetic.py adversarial_compact_cases, the cases
+    chip_smoke.py holds the kernel to on the card): failed gangs at the cap
+    (count = cap), one past it (count = cap + 1, the header keeping the true
+    count) and none; real counts of 0 and of the whole axis; every flag set;
+    no runs (RJ = 0, ecap 0)."""
+    arrs, rg, rr, fcap, ecap = _cap_edge_cases(0)[name]
+    j = np.asarray(jax_fs.compact_result(jax_fs.RoundResult(**arrs), rg, rr, fcap=fcap,
+                                         ecap=ecap))
+    t = t_fs.compact_result(t_fs.RoundResult(**{k: torch.as_tensor(v) for k, v in arrs.items()}),
+                            rg, rr, fcap=fcap, ecap=ecap).numpy()
+    assert j.dtype == t.dtype
+    np.testing.assert_array_equal(j, t)
+    assert t[5] == int((arrs["g_state"][:rg] == 2).sum())
+
+
+@pytest.mark.parametrize("name", ["1000 failed at fcap 1000", "1001 failed at fcap 1000",
+                                  "no runs", "real counts differ by lane"])
+def test_compact_stacked_cap_edges_equal_jax(name):
+    """K-F's plain version against JAX `_compact_stacked` (jax.vmap of
+    compact_result) word for word at the cap edges, over lanes with
+    different data, and with real counts that differ lane by lane."""
+    arrs, rg, rr, fcap, ecap = _cap_edge_cases(_CAP_EDGE_LANES)[name]
+    j = np.asarray(jax_problem._compact_stacked()(
+        jax_fs.RoundResult(**arrs), np.asarray(rg, np.int32), np.asarray(rr, np.int32),
+        fcap=fcap, ecap=ecap))
+    t = compact_result_stacked(
+        t_fs.RoundResult(**{k: torch.as_tensor(v) for k, v in arrs.items()}), rg, rr,
+        fcap=fcap, ecap=ecap).numpy()
+    assert j.dtype == t.dtype and j.shape[0] == _CAP_EDGE_LANES
+    np.testing.assert_array_equal(j, t)
+
+
+def test_compact_plan_words_and_signature_cache():
+    """The K-C/K-F wrapper's argument block (kernels/compact.py
+    compact_plan, run on CPU tensors): the inputs', output's and
+    workspace's pointers, the widths, the tag (1..255, turning over), the
+    real counts by value -- in a device table only past INLINE lanes -- and
+    one plan a signature; inputs the kernel does not take are refused."""
+    from armada_tpu_torch.kernels import compact as KC
+    from armada_tpu_torch.models.synthetic import compact_arrays
+
+    KC._PLANS.clear()
+    KC._WORKSPACES.clear()
+    res = t_fs.RoundResult(**{k: torch.as_tensor(v)
+                              for k, v in compact_arrays(5_000, 300, 4, 2, lanes=3).items()})
+    out, call, ws, table = KC.compact_plan(res, [5_000, 10, 0], [300, 7, 1], lanes=3, fcap=64,
+                                           ecap=32)
+    W = KC.WORD
+    assert out.shape == (3, t_fs.compact_len(4, 2, 64, 32)) and table is None
+    assert [int(call[W[n]]) for n in KC._IN] == [getattr(res, n).data_ptr() for n in KC._IN]
+    assert int(call[W["out"]]) == out.data_ptr() and int(call[W["ws"]]) == ws.buf.data_ptr()
+    assert [int(call[W[n]]) for n in ("G", "RJ", "S", "W", "fcap", "ecap", "lanes", "tag")] == [
+        5_000, 300, 4, 2, 64, 32, 3, 1]
+    inline = call[W["real_inline"]:].view(np.int32)
+    assert inline[:6].tolist() == [5_000, 300, 10, 7, 0, 1]
+    assert call.nbytes == 8 * KC.ARGS_WORDS
+    assert ws.buf.numel() == 3 * KC.ws_lane_words(5_000, 300) == 3 * (2 + 2 * 1)
+    plan = next(iter(KC._PLANS.values()))
+    for k in range(2, 258):
+        _, call, ws2, _ = KC.compact_plan(res, [1] * 3, [1] * 3, lanes=3, fcap=64, ecap=32)
+        assert ws2 is ws and int(call[W["tag"]]) == (k - 1) % 255 + 1
+    assert len(KC._PLANS) == 1 and next(iter(KC._PLANS.values())) is plan
+    solo = t_fs.RoundResult(*(t[0] for t in res))
+    _, call, _, _ = KC.compact_plan(solo, 17, 5, fcap=0, ecap=0)
+    assert call[W["real_inline"]:].view(np.int32)[:2].tolist() == [17, 5]
+    assert int(call[W["lanes"]]) == 1
+    wide = t_fs.RoundResult(**{k: torch.as_tensor(v)
+                               for k, v in compact_arrays(10, 5, 1, 1, lanes=300).items()})
+    _, call, _, table = KC.compact_plan(wide, list(range(300)), [2] * 300, lanes=300, fcap=3,
+                                        ecap=2)
+    assert table.shape == (300, 2) and table[299].tolist() == [299, 2]
+    assert int(call[W["real_table"]]) == table.data_ptr()
+    with pytest.raises(ValueError, match="caps"):
+        KC.compact_plan(solo, 1, 1, fcap=5_001, ecap=0)
+    with pytest.raises(TypeError, match="g_state"):
+        KC.compact_plan(solo._replace(g_state=solo.g_state.long()), 1, 1, fcap=1, ecap=1)
+    with pytest.raises(ValueError, match="expected 3"):
+        KC.compact_plan(res, [1, 2], [1, 2], lanes=3, fcap=1, ecap=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        KC.compact_plan(res._replace(slot_nodes=res.slot_nodes.transpose(1, 2)), [1] * 3,
+                        [1] * 3, lanes=3, fcap=1, ecap=1)
+
+
 # --- 3. lanes (K-E, K-G) and the stack memo --------------------------------------
 
 
