@@ -11,9 +11,11 @@ The port's copy of the JAX package's scheduler/algo.py, with an explicit
 `device` (the card unless the caller passes device="cpu").  Both assembly
 modes (the incremental feed and the legacy per-cycle build), the
 pool-parallel window, the serial per-pool loop and the away rounds are
-ported.  Not ported yet, and refused at construction: market-driven pools
-and bid prices, the gang pricer, the optimiser and priority overrides
-(scheduler/pricer.py, optimiser.py, idealised*.py, providers.py).  The
+ported, and so is the market half: market-driven pools served through a
+bid-price provider, the indicative gang pricer, the idealised and realised
+values (the mega-node round runs on the card too), the optimiser and
+priority overrides (scheduler/providers.py, pricer.py, idealised*.py,
+optimiser.py).  Market pools stay out of the pool-parallel window.  The
 trace spans carry no decision and are left out; the watchdog's degraded
 attribution reads "never degraded" until its supervisor is ported
 (ROADMAP item 8).
@@ -67,6 +69,14 @@ class PoolStats:
     # port, which has no failover ladder yet.
     round_s: float = 0.0
     degraded: bool = False
+    # Market pools only (cycle_metrics.go:534,455,456): configured-shape
+    # prices, the per-queue idealised ("boundary-less cluster") values, and
+    # the realised values of what actually scheduled -- idealised minus
+    # realised is the expectation gap (idealised_value_scheduler.go:28-33).
+    market: bool = False
+    indicative_prices: dict = dataclasses.field(default_factory=dict)
+    idealised_values: dict = dataclasses.field(default_factory=dict)
+    realised_values: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -120,42 +130,65 @@ class FairSchedulingAlgo:
         feed=None,
         device="cuda",
     ):
-        """feed: scheduler.incremental_algo.IncrementalProblemFeed -- when
+        """bid_prices: BidPriceProvider for market-driven pools;
+        priority_overrides: PriorityOverrideProvider replacing per-(pool,
+        queue) fair-share weights (scheduler/providers.py);
+        feed: scheduler.incremental_algo.IncrementalProblemFeed -- when
         set, pool rounds assemble from cycle-persistent builders instead of
         re-reading every Job from the txn (the reference keeps its jobDb
         between cycles, scheduler.go:240-246).  The feed must be attached to
         the same JobDb the txns come from, and its device must be `device`.
-        device: where the rounds run -- the card unless the caller passes
-        device="cpu".  bid_prices and priority_overrides are accepted for
-        the JAX package's signature and refused: their providers are not
-        ported yet."""
+        device: where the rounds run (the idealised mega-node round of the
+        legacy mode too) -- the card unless the caller passes device="cpu"."""
         from armada_tpu_torch.models import _resolve_device
 
-        market_pools = [p.name for p in config.pools if p.market_driven]
-        for what, armed in (
-            (f"market-driven pools {market_pools}", bool(market_pools)),
-            ("bid_prices", bid_prices is not None),
-            ("the gang pricer", any(p.market_driven and p.gangs_to_price for p in config.pools)),
-            ("the optimiser", bool(config.optimiser_enabled)),
-            ("priority_overrides", priority_overrides is not None),
-        ):
-            if armed:
-                raise NotImplementedError(f"{what}: not ported yet")
         self.device = _resolve_device(device)
         self.feed = feed
         self.config = config
         self._queues = queues
         self._clock_ns = clock_ns
         self._run_id = run_id_factory
+        self.bid_prices = bid_prices
+        self.priority_overrides = priority_overrides
+        market_pools = [p.name for p in config.pools if p.market_driven]
+        if market_pools and bid_prices is None:
+            raise ValueError(
+                f"pools {market_pools} are market driven: FairSchedulingAlgo "
+                "needs a bid_prices provider (scheduler/providers.py)"
+            )
         from armada_tpu_torch.scheduler.short_job_penalty import ShortJobPenalty
 
         self.short_job_penalty = ShortJobPenalty(
             config.short_job_penalty_cutoffs()
         )
+        self.gang_pricer = None
+        if any(p.market_driven and p.gangs_to_price for p in config.pools):
+            from armada_tpu_torch.scheduler.pricer import IndicativeGangPricer
+
+            self.gang_pricer = IndicativeGangPricer(config)
+        self.optimiser = None
+        if config.optimiser_enabled:
+            from armada_tpu_torch.scheduler.optimiser import Optimiser, OptimiserConfig
+
+            self.optimiser = Optimiser(
+                config,
+                OptimiserConfig(
+                    enabled=True,
+                    maximum_job_size_to_preempt=(
+                        config.optimiser_maximum_job_size_to_preempt
+                    ),
+                    max_stuck_jobs_per_cycle=config.optimiser_max_stuck_jobs,
+                ),
+            )
         # Per-queue share stats cost an extra device->host transfer; turn off
-        # when neither metrics nor reports are wired.  Metric events publish
-        # them, so they force collection.
-        self.collect_stats = collect_stats or config.publish_metric_events
+        # when neither metrics nor reports are wired.  The optimiser's ideal
+        # victim order NEEDS the shares, and metric events publish them, so
+        # either forces collection.
+        self.collect_stats = (
+            collect_stats
+            or self.optimiser is not None
+            or config.publish_metric_events
+        )
         # Rate limiters (maximumSchedulingRate token buckets): clamp the
         # per-round burst caps so sustained throughput meets the config.
         self.rate_limiters = SchedulingRateLimiters(
@@ -243,6 +276,7 @@ class FairSchedulingAlgo:
                 pools.append(n.pool)
 
         incremental = self.feed is not None
+        market_pools = {p.name for p in self.config.pools if p.market_driven}
         if incremental:
             # Overlay this txn's uncommitted changes onto the persistent
             # builders.  overlay() records what it applied so the same
@@ -252,6 +286,9 @@ class FairSchedulingAlgo:
         # The full per-job txn scans below are what the incremental feed
         # exists to avoid; they remain for the legacy path and the short-job
         # penalty (derived from retained TERMINAL jobs the feed drops).
+        # Incremental market pools compute their observability straight off
+        # the builder columns (scheduler/idealised_columnar.py, pricer
+        # _prepare_columnar), so a 1M-job market cycle stays O(deltas).
         need_job_scan = not incremental
         need_run_scan = (not incremental) or self.short_job_penalty.enabled
 
@@ -308,6 +345,37 @@ class FairSchedulingAlgo:
                     running_by_pool[pool] = []
                 running_by_pool[pool].append(_running_of(job, run))
 
+        bid_price_of = None
+        if self.bid_prices is not None:
+            provider = self.bid_prices
+            # Providers may scope bids per pool (pkg/bidstore keys prices by
+            # pool); static in-process providers ignore the extra argument.
+            import inspect
+
+            takes_pool = "pool" in inspect.signature(provider.price).parameters
+
+            def _pool_pricer(pool: str):
+                if takes_pool:
+                    return lambda job: provider.price(
+                        job.queue, job.price_band, pool
+                    )
+                return lambda job: provider.price(job.queue, job.price_band)
+
+            bid_price_of = _pool_pricer("")
+
+        def pool_queues(pool: str) -> list:
+            if self.priority_overrides is None:
+                return queues
+            return [
+                (
+                    Queue(q.name, ov)
+                    if (ov := self.priority_overrides.override(pool, q.name))
+                    is not None
+                    else q
+                )
+                for q in queues
+            ]
+
         queue_names = [q.name for q in queues]
 
         def round_tokens():
@@ -323,7 +391,8 @@ class FairSchedulingAlgo:
                 self.rate_limiters.consume(by_queue)
 
         def commit_outcome(
-            pool, outcome, *, num_queued, num_running, pool_nodes, round_s=0.0,
+            pool, outcome, *, num_queued, num_running, pool_nodes,
+            market_b=None, running=(), bid_price_of=None, round_s=0.0,
         ):
             """The common per-pool tail -- consume, apply, overlay, stats --
             shared by the serial loop and the pool-parallel window's fetch
@@ -340,16 +409,27 @@ class FairSchedulingAlgo:
                 # OTHER window pools' tables -- pools_independent -- and it
                 # fires in the same order as the serial loop regardless.)
                 self.feed.overlay(txn._upserts)
-            result.pools.append(
-                PoolStats(
-                    pool=pool,
-                    outcome=outcome,
-                    num_nodes=len(pool_nodes),
-                    num_queued=num_queued,
-                    num_running=num_running,
-                    round_s=round_s,
-                )
+            stats = PoolStats(
+                pool=pool,
+                outcome=outcome,
+                num_nodes=len(pool_nodes),
+                num_queued=num_queued,
+                num_running=num_running,
+                round_s=round_s,
             )
+            if pool in market_pools:
+                stats.market = True
+                if incremental:
+                    self._market_observability_columnar(
+                        stats, pool, pool_nodes, txn, market_b, outcome,
+                        bid_price_of,
+                    )
+                else:
+                    self._market_observability(
+                        stats, pool, pool_nodes, pool_queues(pool),
+                        queued_jobs, running, outcome, bid_price_of,
+                    )
+            result.pools.append(stats)
             # Jobs scheduled in this pool are no longer queued for later pools.
             scheduled_ids = set(outcome.scheduled)
             if scheduled_ids:
@@ -373,7 +453,9 @@ class FairSchedulingAlgo:
         #     consumption; when every windowed pool's tokens minus the
         #     window's worst-case prior consumption still exceed its whole
         #     backlog, the caps cannot trip in either order and the reading
-        #     difference is decision-inert).
+        #     difference is decision-inert);
+        #   * non-market pools only (market observability reads builder
+        #     state between rounds).
         # Anything else drains the window and runs serially -- a per-cycle
         # decision (a tenant submitting a multi-pool job just flips the next
         # cycle back to serial; scheduler/pool_serving.py counts it).
@@ -433,17 +515,21 @@ class FairSchedulingAlgo:
             pool_nodes = [n for n in nodes if n.pool == pool]
             if not pool_nodes:
                 continue
-            window_eligible = pool_parallel_ok
+            window_eligible = pool_parallel_ok and pool not in market_pools
             if not window_eligible:
                 # Ineligible pool ahead: every windowed round fetches and
                 # applies NOW, so this pool's prepare sees exactly the state
                 # the serial loop would have shown it.
                 flush_window()
+            bid_price_of = _pool_pricer(pool) if self.bid_prices is not None else None
             running = running_by_pool.get(pool, [])
             if incremental:
                 prep_t0 = time.monotonic()
                 b = self.feed.builder_for(pool, txn)
-                b.set_queues(queues)
+                # Market prices are re-read from the provider every cycle;
+                # the builder's _prices() snapshot uses this callable.
+                b.bid_price_of = bid_price_of
+                b.set_queues(pool_queues(pool))
                 b.set_nodes(pool_nodes)
                 num_queued = len(b.jobs.key_of_id) + len(b.gang_jobs)
                 num_running = len(b.runs.key_of_id)
@@ -544,7 +630,9 @@ class FairSchedulingAlgo:
                 pool_round_s[pool] = dt
                 commit_outcome(
                     pool, outcome, num_queued=num_queued,
-                    num_running=num_running, pool_nodes=pool_nodes, round_s=dt,
+                    num_running=num_running, pool_nodes=pool_nodes,
+                    market_b=b, running=running, bid_price_of=bid_price_of,
+                    round_s=dt,
                 )
             else:
                 if not queued_jobs and not running:
@@ -556,10 +644,11 @@ class FairSchedulingAlgo:
                     self.config,
                     pool=pool,
                     nodes=pool_nodes,
-                    queues=queues,
+                    queues=pool_queues(pool),
                     queued_jobs=queued_jobs,
                     running=running,
                     collect_stats=self.collect_stats,
+                    bid_price_of=bid_price_of,
                     global_tokens=g_tokens,
                     queue_tokens=q_tokens,
                     banned_nodes=banned_nodes,
@@ -570,7 +659,8 @@ class FairSchedulingAlgo:
                 pool_round_s[pool] = dt
                 commit_outcome(
                     pool, outcome, num_queued=num_queued,
-                    num_running=num_running, pool_nodes=pool_nodes, round_s=dt,
+                    num_running=num_running, pool_nodes=pool_nodes,
+                    running=running, bid_price_of=bid_price_of, round_s=dt,
                 )
         flush_window()
         if pool_round_s:
@@ -643,7 +733,7 @@ class FairSchedulingAlgo:
                     self.config,
                     pool=host,
                     nodes=host_nodes,
-                    queues=queues,
+                    queues=pool_queues(host),
                     queued_jobs=[
                         dataclasses.replace(j, pools=(host,))
                         for j in away_jobs
@@ -654,6 +744,11 @@ class FairSchedulingAlgo:
                         else host_running(host)
                     ),
                     collect_stats=False,
+                    bid_price_of=(
+                        _pool_pricer(host)
+                        if self.bid_prices is not None
+                        else None
+                    ),
                     away_mode=True,
                     global_tokens=g_tokens,
                     queue_tokens=q_tokens,
@@ -681,10 +776,239 @@ class FairSchedulingAlgo:
                                 _running_of(job, run)
                             )
 
+        # Optimiser pass (optimiser/node_scheduler.go via pqs.go:250-272):
+        # jobs the rounds could not place get one targeted-preemption attempt.
+        if self.optimiser is not None:
+            self._optimise_stuck(
+                txn,
+                result,
+                queued_jobs,
+                nodes,
+                running_by_pool,
+                extra_running,
+                executor_of_node,
+                now_ns,
+                banned_nodes,
+            )
+
         # No device round ran (or the legacy path): the caller's thunks
         # still execute exactly once, just without a shadow to hide in.
         drain_shadow()
         return result
+
+    def _market_observability(
+        self,
+        stats: PoolStats,
+        pool: str,
+        pool_nodes: list,
+        queues: list,
+        queued_jobs: list,
+        running: list,
+        outcome: RoundOutcome,
+        bid_price_of,
+    ) -> None:
+        """Market-pool extras: indicative gang prices against the post-round
+        state (pqs.go runPricer:596) and idealised per-queue values
+        (scheduling_algo.go:595 CalculateIdealisedValue), the mega-node
+        round on the algo's device."""
+        if bid_price_of is None:
+            return
+        if self.gang_pricer is not None:
+            preempted_now = set(outcome.preempted)
+            by_id = {j.id: j for j in queued_jobs}
+            running_now = [r for r in running if r.job.id not in preempted_now]
+            for jid, nid in outcome.scheduled.items():
+                job = by_id.get(jid)
+                if job is not None:
+                    running_now.append(RunningJob(job=job, node_id=nid))
+            stats.indicative_prices = self.gang_pricer.price_pool_gangs(
+                pool, pool_nodes, running_now, bid_price_of
+            )
+        from armada_tpu_torch.scheduler.idealised import (
+            calculate_idealised_values,
+            value_of_jobs,
+        )
+
+        stats.idealised_values = calculate_idealised_values(
+            self.config,
+            pool=pool,
+            nodes=pool_nodes,
+            queues=queues,
+            queued_jobs=queued_jobs,
+            running=running,
+            bid_price_of=bid_price_of,
+            device=self.device,
+        )
+        # Realised value: what this round's actual placements are worth --
+        # newly scheduled jobs plus evicted-and-rescheduled ones
+        # (scheduling_algo.go:670-676 valueFromSchedulingResult on the real
+        # context), in the SAME valuation currency as idealised.
+        spec_of = {j.id: j for j in queued_jobs}
+        spec_of.update({r.job.id: r.job for r in running})
+        placed = (
+            spec_of[jid]
+            for jid in list(outcome.scheduled) + list(outcome.rescheduled)
+            if jid in spec_of
+        )
+        stats.realised_values = value_of_jobs(
+            placed, bid_price_of, self.config.resource_list_factory()
+        )
+
+    def _market_observability_columnar(
+        self,
+        stats: PoolStats,
+        pool: str,
+        pool_nodes: list,
+        txn: WriteTxn,
+        builder,
+        outcome: RoundOutcome,
+        bid_price_of,
+    ) -> None:
+        """Incremental-mode market observability: the same three quantities
+        as _market_observability, read off the builder columns instead of
+        spec lists (the builder's runs table already reflects this pool's
+        leases and preemptions -- feed.overlay() ran before stats).
+        Realised values stay O(decisions) via txn lookups."""
+        if bid_price_of is None:
+            return
+        from armada_tpu_torch.scheduler.idealised import value_of_jobs
+        from armada_tpu_torch.scheduler.idealised_columnar import (
+            _band_price_table,
+            calculate_idealised_values_columnar,
+        )
+
+        price_table = _band_price_table(builder, bid_price_of)
+        if self.gang_pricer is not None:
+            stats.indicative_prices = self.gang_pricer.price_pool_gangs_columnar(
+                pool, pool_nodes, builder, bid_price_of, price_table
+            )
+        # The mega round's candidate set is the PRE-round state
+        # (idealised_value.go:68-76): jobs preempted this cycle already left
+        # the builder tables (feed.overlay() ran), so they re-enter here
+        # explicitly -- O(preempted) txn lookups.
+        preempted_specs = []
+        for jid in outcome.preempted:
+            job = txn.get(jid)
+            if job is not None:
+                preempted_specs.append(
+                    dataclasses.replace(
+                        job.spec,
+                        priority=job.priority,
+                        pools=job.pools or job.spec.pools,
+                    )
+                )
+        stats.idealised_values = calculate_idealised_values_columnar(
+            self.config,
+            pool=pool,
+            builder=builder,
+            bid_price_of=bid_price_of,
+            extra_candidates=tuple(preempted_specs),
+            price_table=price_table,
+        )
+        placed = []
+        for jid in list(outcome.scheduled) + list(outcome.rescheduled):
+            job = txn.get(jid)
+            if job is not None:
+                placed.append(job.spec)
+        stats.realised_values = value_of_jobs(
+            placed, bid_price_of, self.config.resource_list_factory()
+        )
+
+    def _optimise_stuck(
+        self,
+        txn: WriteTxn,
+        result: SchedulerResult,
+        queued_jobs: list,
+        nodes: list,
+        running_by_pool: dict,
+        extra_running: dict,
+        executor_of_node: dict,
+        now_ns: int,
+        banned_nodes: Optional[dict] = None,
+    ) -> None:
+        preempted_ids = {job.id for job, _ in result.preempted}
+        still_queued = {j.id: j for j in queued_jobs}
+
+        def resolve_queued(jid):
+            spec = still_queued.get(jid)
+            if spec is not None:
+                return spec
+            # Incremental mode keeps no spec list; the txn is the truth.
+            job = txn.get(jid)
+            if job is None or not job.queued or not job.validated:
+                return None
+            return dataclasses.replace(
+                job.spec, priority=job.priority, pools=job.pools or job.spec.pools
+            )
+
+        # The optimiser places at most max_stuck_jobs_per_cycle; collecting a
+        # generous multiple of that preserves its own candidate ordering
+        # while keeping the scan O(candidates), not O(failed backlog) -- a
+        # round can retire whole key classes (~the entire backlog in
+        # outcome.failed, decoded lazily in chunks).
+        candidate_cap = max(100, 10 * self.optimiser.opt.max_stuck_jobs_per_cycle)
+        for stats in result.pools:
+            pool = stats.pool
+            stuck = []
+            for jid in stats.outcome.failed:
+                spec = resolve_queued(jid)
+                if spec is not None:
+                    stuck.append(spec)
+                    if len(stuck) >= candidate_cap:
+                        break
+            if not stuck:
+                continue
+            pool_nodes = [n for n in nodes if n.pool == pool]
+            if self.feed is not None:
+                running_now = self.feed.running_of(pool, txn)
+            else:
+                running_now = [
+                    r
+                    for r in running_by_pool.get(pool, [])
+                    if r.job.id not in preempted_ids
+                ] + extra_running.get(pool, [])
+            if self.feed is not None and banned_nodes is not None:
+                # Incremental mode skipped the legacy scan that collects
+                # retry anti-affinity: resolve bans for the stuck set so the
+                # optimiser cannot re-place a job on the node it died on.
+                for spec in stuck:
+                    job = txn.get(spec.id)
+                    bans = job.anti_affinity_nodes() if job is not None else ()
+                    if bans:
+                        banned_nodes[spec.id] = bans
+            shares = stats.outcome.queue_stats
+            decisions = self.optimiser.optimise(
+                stuck,
+                pool_nodes,
+                running_now,
+                actual_share={q: s["actual_share"] for q, s in shares.items()},
+                fair_share={
+                    q: s["adjusted_fair_share"] for q, s in shares.items()
+                },
+                banned_nodes=banned_nodes,
+            )
+            for d in decisions:
+                # The rate limiters gate optimiser placements too.
+                spec = resolve_queued(d.job_id)
+                queue = spec.queue if spec is not None else ""
+                g_tokens, q_tokens = self.rate_limiters.tokens([queue])
+                if g_tokens is not None and g_tokens < 1:
+                    break
+                if q_tokens is not None and q_tokens.get(queue, 1) < 1:
+                    continue
+                synthetic = RoundOutcome(
+                    scheduled={d.job_id: d.node_id},
+                    preempted=list(d.preempted_job_ids),
+                    failed=[],
+                    num_iterations=0,
+                    termination="optimiser",
+                )
+                self._apply_outcome(
+                    txn, synthetic, pool, executor_of_node, now_ns, result
+                )
+                self.rate_limiters.consume({queue: 1})
+                still_queued.pop(d.job_id, None)
+
 
     # --- applying a pool outcome to the txn ---------------------------------
 

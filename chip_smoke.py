@@ -62,7 +62,24 @@ cycle through MeshDeviceDeltaCache at 8 shards beside the single-card
 cycle, decision for decision (K-H under the mesh cache, the counterpart of
 K-L); and the main world at commit_k and batch_k 32 (the wide
 instantiations) and the round's water-fill at Q that are not multiples of
-32.
+32.  The market path, after the pools path: bench.py's market deployment
+(1M jobs x 50k nodes x 64 queues, seed 7, 8 price bands, the pool market
+driven with spot_price_cutoff 0.9) loaded through a JobDb with an
+IncrementalProblemFeed and served by FairSchedulingAlgo with a
+StaticBidPriceProvider, two priced gang shapes, the optimiser and priority
+overrides on 8 queues, verification on: a fill and three steady cycles of
+1,000 specs, four queues' bids moving before the second; the rounds of
+the first steady cycle and of the moved cycle equal their plain versions
+on the same device problem in every field, every steady cycle's resident
+problem equals the host tables (the scatter after the move included), and
+each cycle prints its wall,
+K-B's ms, the pricer's, the idealised sweep's, the realised values' and
+the optimiser's ms, the indicative prices, the spot price and the
+optimiser's placements.  Its small worlds run early (`market_small`):
+KB_MARKET's world through the legacy route (the idealised mega-node round
+on the card) and the columnar one, a two-pool world with priority
+overrides and the optimiser's world, each through FairSchedulingAlgo on
+the card and with device="cpu", which must agree.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
@@ -2595,23 +2612,13 @@ def pools_world(world: dict, dev, pool_nodes=POOL_NODES, bucket: int = POOL_BUCK
     """(config, jdb, feed, algo, executors, names) for `world` split into
     pools of `pool_nodes` nodes each (the main world's 8-pool split by
     default), its jobs and runs loaded through a JobDb with an
-    IncrementalProblemFeed attached."""
+    IncrementalProblemFeed attached (`load_algo`)."""
     from armada_tpu_torch.core.config import PoolConfig
-    from armada_tpu_torch.jobdb.job import Job, JobRun
-    from armada_tpu_torch.jobdb.jobdb import JobDb
-    from armada_tpu_torch.scheduler.algo import FairSchedulingAlgo
-    from armada_tpu_torch.scheduler.executors import ExecutorSnapshot
-    from armada_tpu_torch.scheduler.incremental_algo import IncrementalProblemFeed
 
     config, nodes, queues, specs, running, _ = world["world"]
     names = [f"pool{i}" for i in range(len(pool_nodes))]
-    cfg = dataclasses.replace(
-        config, pools=tuple(PoolConfig(n) for n in names), shape_bucket=bucket,
-        incremental_problem_build=True,
-        # unlimited rate buckets (bench.py's pools arm): at these backlogs
-        # armed buckets always bind and the cycle stays serial
-        maximum_scheduling_rate=0.0, maximum_per_queue_scheduling_rate=0.0,
-    )
+    cfg = dataclasses.replace(config, pools=tuple(PoolConfig(n) for n in names),
+                              shape_bucket=bucket)
     starts = np.concatenate([[0], np.cumsum(pool_nodes)])
     if starts[-1] != len(nodes):
         raise AssertionError(f"the pools split {starts[-1]} nodes, the world has {len(nodes)}")
@@ -2621,37 +2628,15 @@ def pools_world(world: dict, dev, pool_nodes=POOL_NODES, bucket: int = POOL_BUCK
     ]
     per_pool = len(specs) // len(names)
     runs_per_pool = len(running) // len(names)
-    jobs = []
-    for i, s in enumerate(specs):
-        pool = (names[min(i // per_pool, len(names) - 1)],)
-        jobs.append(Job(spec=dataclasses.replace(s, pools=pool), queued=True, validated=True,
-                        pools=pool))
+    runs = []
     for i, r in enumerate(running):
-        p = min(i // runs_per_pool, len(names) - 1)
-        node = pool_nodes[p][int(r.node_id[1:]) % len(pool_nodes[p])].id
-        pc = cfg.priority_class(r.job.priority_class).priority
-        spec = dataclasses.replace(r.job, pools=(names[p],))
-        jobs.append(Job(spec=spec, queued=False, validated=True, pools=(names[p],), runs=(
-            JobRun(id=f"run-{spec.id}", job_id=spec.id, node_id=node, node_name=node,
-                   pool=names[p], scheduled_at_priority=pc, running=True),
-        )))
-    jdb = JobDb(cfg)
-    feed = IncrementalProblemFeed(cfg, device=dev)
-    feed.attach(jdb)
-    txn = jdb.write_txn()
-    txn.upsert(jobs)
-    txn.commit()
-    executors = [
-        ExecutorSnapshot(id=f"ex-{n}", pool=n, nodes=tuple(pn), last_update_ns=POOL_NOW_NS)
-        for n, pn in zip(names, pool_nodes)
-    ]
-    run_ids = iter(range(10**9))
-    algo = FairSchedulingAlgo(
-        cfg, queues=lambda: queues, clock_ns=lambda: POOL_NOW_NS,
-        run_id_factory=lambda: f"prun{next(run_ids):08d}", collect_stats=False, feed=feed,
-        device=dev,
-    )
-    return cfg, jdb, feed, algo, executors, names
+        pn = pool_nodes[min(i // runs_per_pool, len(names) - 1)]
+        runs.append(dataclasses.replace(r, node_id=pn[int(r.node_id[1:]) % len(pn)].id))
+    jdb, feed, algo, executors = load_algo(
+        cfg, [n for pn in pool_nodes for n in pn], queues, specs, runs, dev,
+        pool_of=lambda i: names[min(i // per_pool, len(names) - 1)], run_tag="prun",
+        collect_stats=False, now_ns=POOL_NOW_NS)
+    return algo.config, jdb, feed, algo, executors, names
 
 
 POOL_NOW_NS = 10**12
@@ -3268,6 +3253,496 @@ def pools_path(dev, world: dict, small: dict) -> dict:
                 N=N, G=G, RJ=RJ, P=P, lanes_in_turns=turns, stacked_round_turns=kd_turns)
 
 
+# --- the market path ---------------------------------------------------------------
+
+# bench.py's market deployment (ARMADA_BENCH_MARKET=1): the pool "default",
+# market driven with spot_price_cutoff 0.9, 8 price bands; a fill cycle and
+# MARKET_STEADY_CYCLES steady cycles of MARKET_BURST fresh specs each
+MARKET_WORLD = dict(num_nodes=50_000, num_jobs=1_000_000, num_queues=64, num_runs=25_000,
+                    seed=7, market=True)
+MARKET_STEADY_CYCLES = 3
+MARKET_BURST = 1_000
+MARKET_OVERRIDES = 8  # queues whose fair-share weight the override provider changes
+MARKET_NOW_NS = 10**12
+# the steady cycle on which four queues' band-0 bids move (a new provider):
+# the builder re-permutes its market tables and the round must still equal
+# its plain version and the resident problem the host tables -- on that
+# cycle's full upload and on the next cycle's scatter (K-H's plan cache
+# across the move)
+MARKET_PRICE_MOVE = 2
+# the small-world checks: KB_MARKET's world through both routes, a
+# two-pool world with overrides and the optimiser's world, each on the card
+# and with device="cpu"; a 32-row bucket keeps the plain versions quick
+MARKET_SMALL_BUCKET = 32
+MARKET_SMALL_FRESH = 500
+MARKET_TWO_POOLS = dict(num_nodes=400, num_jobs=3_000, num_queues=16, num_runs=400, seed=3)
+
+
+def market_providers(queues, pool: str = "default", moved: int = 0, overrides: int = 0):
+    """(bid provider, override provider): every (queue, band) at its
+    synthetic_bid_price -- with the band-0 bids of the first `moved` queues
+    tripled -- and the weights of the first `overrides` queues of `pool`
+    changed (x4 and x0.25 in turn); None for no overrides."""
+    from armada_tpu_torch.models.synthetic import SYNTHETIC_BANDS, synthetic_bid_price
+    from armada_tpu_torch.scheduler.providers import (
+        StaticBidPriceProvider, StaticPriorityOverrideProvider,
+    )
+
+    prices = {}
+    for i, q in enumerate(queues):
+        for b in SYNTHETIC_BANDS:
+            p = synthetic_bid_price(types.SimpleNamespace(queue=q.name, price_band=b))
+            prices[(q.name, b)] = 3.0 * p if (i < moved and b == SYNTHETIC_BANDS[0]) else p
+    ov = None
+    if overrides:
+        ov = StaticPriorityOverrideProvider({
+            (pool, q.name): q.weight * (4.0 if i % 2 == 0 else 0.25)
+            for i, q in enumerate(queues[:overrides])
+        })
+    return StaticBidPriceProvider(prices), ov
+
+
+def market_shapes(specs, nodes, factory) -> tuple:
+    """gangs_to_price from the world's own requests: 8 members of the
+    commonest request (fits), and 2 members each larger than any node (the
+    pricer walks every node and finds none).  The synthetic world's nodes
+    carry no labels, so no shape names a uniformity label."""
+    from armada_tpu_torch.core.config import GangDefinition
+
+    counts = collections.Counter(id(s.resources) for s in specs)
+    by_id = {id(s.resources): s.resources for s in specs[:100_000]}
+    common = by_id[max((k for k in counts if k in by_id), key=counts.__getitem__)]
+    req = common.to_dict()
+    if not np.array_equal(factory.from_mapping(req).atoms, common.atoms):
+        raise AssertionError(f"the commonest request does not round-trip: {req}")
+    cpu = factory.names.index("cpu")
+    big = max(int(n.total_resources.atoms[cpu]) for n in nodes)
+    beyond = dict(req, cpu=str(2 * big // 1000))  # atoms are millicores
+    if factory.from_mapping(beyond).atoms[cpu] <= big:
+        raise AssertionError("the oversized shape fits a node")
+    return (("common_x8", GangDefinition(size=8, priority_class="batch", resources=req)),
+            ("beyond_any_node", GangDefinition(size=2, priority_class="batch",
+                                               resources=beyond)))
+
+
+def load_algo(config, nodes, queues, specs, running, device, *, incremental=True, bids=None,
+              overrides=None, pool_of=None, run_tag="m", collect_stats=True,
+              now_ns=MARKET_NOW_NS):
+    """(jdb, feed, algo, executors): the world loaded through a port JobDb --
+    queued specs into pool `pool_of(i)` (the first pool by default), runs
+    on their nodes' pools -- with an IncrementalProblemFeed on `device`
+    when `incremental`, and FairSchedulingAlgo on `device` with the given
+    providers, unlimited rate buckets (at these backlogs armed buckets bind
+    against the frozen clock: bench.py's pools arm runs them so too) and
+    run ids from a counter; one executor a pool, seen at `now_ns`."""
+    from armada_tpu_torch.jobdb.job import Job, JobRun
+    from armada_tpu_torch.jobdb.jobdb import JobDb
+    from armada_tpu_torch.scheduler.algo import FairSchedulingAlgo
+    from armada_tpu_torch.scheduler.executors import ExecutorSnapshot
+    from armada_tpu_torch.scheduler.incremental_algo import IncrementalProblemFeed
+
+    cfg = dataclasses.replace(
+        config, incremental_problem_build=incremental,
+        maximum_scheduling_rate=0.0, maximum_per_queue_scheduling_rate=0.0)
+    names = [p.name for p in cfg.pools]
+    node_pool = {n.id: n.pool for n in nodes}
+    jobs = []
+    for i, s in enumerate(specs):
+        pool = (pool_of(i) if pool_of else names[0],)
+        jobs.append(Job(spec=dataclasses.replace(s, pools=pool), queued=True, validated=True,
+                        pools=pool))
+    for r in running:
+        pool = node_pool[r.node_id]
+        pc = cfg.priority_class(r.job.priority_class).priority
+        spec = dataclasses.replace(r.job, pools=(pool,))
+        jobs.append(Job(spec=spec, queued=False, validated=True, pools=(pool,), runs=(
+            JobRun(id=f"run-{spec.id}", job_id=spec.id, node_id=r.node_id, node_name=r.node_id,
+                   pool=pool, scheduled_at_priority=pc, running=True),
+        )))
+    jdb = JobDb(cfg)
+    feed = None
+    if incremental:
+        feed = IncrementalProblemFeed(cfg, device=device)
+        feed.attach(jdb)
+    txn = jdb.write_txn()
+    txn.upsert(jobs)
+    txn.commit()
+    executors = [
+        ExecutorSnapshot(id=f"ex-{p}", pool=p, nodes=tuple(n for n in nodes if n.pool == p),
+                         last_update_ns=now_ns)
+        for p in names
+    ]
+    run_ids = iter(range(10**9))
+    algo = FairSchedulingAlgo(
+        cfg, queues=lambda: queues, clock_ns=lambda: now_ns,
+        run_id_factory=lambda: f"{run_tag}{next(run_ids):08d}", collect_stats=collect_stats,
+        feed=feed, bid_prices=bids, priority_overrides=overrides, device=device)
+    return jdb, feed, algo, executors
+
+
+def market_view(res) -> tuple:
+    """A cycle's SchedulerResult as comparable values: the ordered
+    decisions, the failed ids, and every pool's round fields and market
+    PoolStats fields (indicative prices, idealised and realised values)."""
+    pools = []
+    for ps in res.pools:
+        o = ps.outcome
+        pools.append((
+            ps.pool, ps.market, o.spot_price, o.num_iterations, o.kernel_iters, o.termination,
+            sorted((n, r.evaluated, r.schedulable, r.price, r.unschedulable_reason)
+                   for n, r in ps.indicative_prices.items()),
+            sorted(ps.idealised_values.items()), sorted(ps.realised_values.items()),
+        ))
+    return ([(j.id, r.id, r.node_id) for j, r in res.scheduled],
+            sorted(j.id for j, _ in res.preempted), sorted(res.failed), pools)
+
+
+def _market_cycles(algo, jdb, executors, fresh_by_cycle, pool_of=None, providers=None) -> list:
+    """Drive one cycle per entry of fresh_by_cycle (None: submit nothing),
+    committing each; providers[c], where given, replaces the bid provider
+    before cycle c.  Returns each cycle's market_view."""
+    from armada_tpu_torch.jobdb.job import Job
+
+    names = [p.name for p in algo.config.pools]
+    views = []
+    for c, fresh in enumerate(fresh_by_cycle):
+        if providers and providers.get(c) is not None:
+            algo.bid_prices = providers[c]
+        txn = jdb.write_txn()
+        if fresh:
+            txn.upsert([
+                Job(spec=dataclasses.replace(s, pools=(pool_of(i) if pool_of else names[0],)),
+                    queued=True, validated=True,
+                    pools=(pool_of(i) if pool_of else names[0],))
+                for i, s in enumerate(fresh)
+            ])
+        res = algo.schedule(txn, executors, MARKET_NOW_NS)
+        views.append(market_view(res))
+        txn.commit()
+    return views
+
+
+def _same_views(card: list, cpu: list, what: str) -> None:
+    for c, (a, b) in enumerate(zip(card, cpu)):
+        for k, name in enumerate(("decisions", "preempted", "failed", "pool stats")):
+            if a[k] != b[k]:
+                raise AssertionError(f"{what}, cycle {c}: the card and device='cpu' differ in "
+                                     f"{name}")
+    if len(card) != len(cpu):
+        raise AssertionError(f"{what}: cycle counts differ")
+
+
+def market_small(dev) -> dict:
+    """The small-world market checks, each world run through the whole
+    FairSchedulingAlgo on the card and with device="cpu", which must give
+    equal decisions and market PoolStats:
+    - KB_MARKET's world through the legacy route (the idealised mega-node
+      round on the card: K-B, K-C, K-A at N = 1) for a fill cycle, and
+      through the columnar route for a fill cycle and a steady cycle whose
+      bids move; the two routes' idealised values agree on the fill cycle
+      (the world stays below 2^24 resolution units);
+    - a two-pool world with priority overrides (two cycles);
+    - the optimiser's world (tests/test_optimiser.py's end-to-end case)."""
+    import torch
+
+    from armada_tpu_torch.core.config import PoolConfig, SchedulingConfig
+    from armada_tpu_torch.core.types import JobSpec, NodeSpec, Queue
+    from armada_tpu_torch.models.synthetic import synthetic_world
+
+    out = {}
+    config, nodes, queues, specs, running, factory_fn = synthetic_world(
+        **KB_MARKET, shape_bucket=MARKET_SMALL_BUCKET)
+    shapes = market_shapes(specs, nodes, config.resource_list_factory())
+    config = dataclasses.replace(config, pools=(dataclasses.replace(
+        config.pools[0], gangs_to_price=shapes),))
+    bids, ov = market_providers(queues, overrides=4)
+    moved, _ = market_providers(queues, moved=4)
+    fresh = factory_fn(MARKET_SMALL_FRESH, 1e6)
+    views = {}
+    for route, incremental, cycles in (("legacy", False, [None]),
+                                       ("columnar", True, [None, fresh])):
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            jdb, _feed, algo, ex = load_algo(config, nodes, queues, specs, running, device,
+                                               incremental=incremental, bids=bids, overrides=ov)
+            views[(route, where)] = _market_cycles(algo, jdb, ex, cycles, providers={1: moved})
+            out[f"{route}_{where}_s"] = time.perf_counter() - t0
+        _same_views(views[(route, "card")], views[(route, "cpu")], f"market world, {route}")
+    leg, col = views[("legacy", "card")][0][3][0], views[("columnar", "card")][0][3][0]
+    if views[("legacy", "card")][0][:2] != views[("columnar", "card")][0][:2]:
+        raise AssertionError("market world: the legacy and columnar routes decide differently")
+    li, ci = dict(leg[7]), dict(col[7])
+    if sorted(li) != sorted(ci) or not li or not all(
+            np.isclose(li[q], ci[q], rtol=1e-12, atol=0.0) for q in li):
+        raise AssertionError(f"market world: idealised values differ between the routes: "
+                             f"{li} / {ci}")
+    if leg[6] != col[6] or leg[8] != col[8]:
+        raise AssertionError("market world: indicative prices or realised values differ "
+                             "between the routes")
+    out["market_world"] = dict(
+        scheduled=[len(v[0]) for v in views[("columnar", "card")]],
+        spot_price=[v[3][0][2] for v in views[("columnar", "card")]],
+        indicative=leg[6], idealised_queues=len(li), realised_queues=len(dict(leg[8])))
+    log(f"market small: KB_MARKET's world, legacy (mega-node round on the card) and columnar "
+        f"routes equal their device='cpu' runs; routes agree on the idealised values of "
+        f"{len(li)} queues (rtol 1e-12); {out['market_world']}")
+
+    # two pools, every job restricted to one, queue weights overridden per pool
+    config2, nodes2, queues2, specs2, running2, factory2 = synthetic_world(
+        **MARKET_TWO_POOLS, shape_bucket=MARKET_SMALL_BUCKET)
+    half = len(nodes2) // 2
+    nodes2 = [dataclasses.replace(n, pool="pa" if i < half else "pb") for i, n in enumerate(nodes2)]
+    config2 = dataclasses.replace(config2, pools=(PoolConfig("pa"), PoolConfig("pb")))
+    from armada_tpu_torch.scheduler.providers import StaticPriorityOverrideProvider
+
+    ov2 = StaticPriorityOverrideProvider(
+        {("pa", q.name): 6.0 for q in queues2[:3]}
+        | {("pb", q.name): 0.2 for q in queues2[:3]}
+        | {("pb", q.name): 3.0 for q in queues2[-3:]})
+    fresh2 = factory2(200, 1e6)
+    pool_of = lambda i: "pa" if i % 2 == 0 else "pb"  # noqa: E731
+    got = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        jdb, _f, algo, ex = load_algo(config2, nodes2, queues2, specs2, running2, device,
+                                      overrides=ov2, pool_of=pool_of)
+        got[where] = _market_cycles(algo, jdb, ex, [None, fresh2], pool_of=pool_of)
+    _same_views(got["card"], got["cpu"], "two-pool overrides")
+    out["overrides"] = dict(scheduled=[len(v[0]) for v in got["card"]])
+    log(f"market small: two pools with priority overrides equal their device='cpu' runs; "
+        f"{out['overrides']}")
+
+    # the optimiser's world: hogs fill two 8-cpu nodes, eviction is off, and
+    # the optimiser preempts one node's worth for the 8-cpu job
+    cfg3 = SchedulingConfig(shape_bucket=MARKET_SMALL_BUCKET,
+                            protected_fraction_of_fair_share=100.0, optimiser_enabled=True,
+                            default_priority_class="armada-preemptible")
+    F = cfg3.resource_list_factory()
+    nodes3 = [NodeSpec(id=f"n{k}", pool="default",
+                       total_resources=F.from_mapping({"cpu": "8", "memory": "32"}))
+              for k in range(2)]
+    hogs = [JobSpec(id=f"hog-{i}", queue="hog", submit_time=0.0,
+                    priority_class="armada-preemptible",
+                    resources=F.from_mapping({"cpu": "2", "memory": "2"})) for i in range(8)]
+    big = [JobSpec(id="big", queue="starved", submit_time=1.0,
+                   priority_class="armada-preemptible",
+                   resources=F.from_mapping({"cpu": "8", "memory": "8"}))]
+    queues3 = [Queue("hog"), Queue("starved")]
+    got = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        jdb, _f, algo, ex = load_algo(cfg3, nodes3, queues3, hogs, [], device)
+        got[where] = _market_cycles(algo, jdb, ex, [None, big, None])
+    _same_views(got["card"], got["cpu"], "optimiser world")
+    placed, preempted = got["card"][1][0], got["card"][1][1]
+    if [p[0] for p in placed] != ["big"] or len(preempted) != 4:
+        raise AssertionError(f"optimiser world: {placed} / {preempted}")
+    out["optimiser"] = dict(placed=placed, preempted=preempted)
+    log(f"market small: the optimiser places the 8-cpu job over 4 preempted hogs, on the card "
+        f"as with device='cpu'")
+    return out
+
+
+class _timed:
+    """Wraps a callable, adding its host seconds to `self.s` (reset per cycle)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.s = 0.0
+        self.calls = 0
+
+    def __call__(self, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return self.fn(*a, **kw)
+        finally:
+            self.s += time.perf_counter() - t
+            self.calls += 1
+
+
+def market_path(dev, small: dict) -> dict:
+    """bench.py's market deployment at full width through the serving cycle:
+    1M jobs x 50k nodes x 64 queues (seed 7, 8 price bands) loaded through a
+    JobDb with an IncrementalProblemFeed, FairSchedulingAlgo with a
+    StaticBidPriceProvider, two priced gang shapes, the optimiser and
+    overrides on 8 queues, verification on; a fill cycle and three steady
+    cycles of 1,000 fresh specs, the bids of four queues moving before the
+    second.  The first steady cycle's round (and the moved cycle's) is held
+    against its plain version on the same device problem, field by field,
+    and every steady cycle's resident problem against the host tables."""
+    import torch
+
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch import models as M
+    from armada_tpu_torch.models import explain as X
+    from armada_tpu_torch.models import verify as V
+    from armada_tpu_torch.models.fair_scheduler import round_statics, schedule_round_plain
+    from armada_tpu_torch.models.synthetic import synthetic_world
+    from armada_tpu_torch.scheduler import idealised as I
+    from armada_tpu_torch.scheduler import idealised_columnar as IC
+
+    t0 = time.perf_counter()
+    config, nodes, queues, specs, running, spec_factory = synthetic_world(**MARKET_WORLD)
+    world_s = time.perf_counter() - t0
+    shapes = market_shapes(specs, nodes, config.resource_list_factory())
+    config = dataclasses.replace(config, optimiser_enabled=True, pools=(dataclasses.replace(
+        config.pools[0], gangs_to_price=shapes),))
+    bids, ov = market_providers(queues, overrides=MARKET_OVERRIDES)
+    moved, _ = market_providers(queues, moved=4)
+    fresh_by_cycle = [None] + [spec_factory(MARKET_BURST, 1e6 + 100.0 * c)
+                               for c in range(1, 1 + MARKET_STEADY_CYCLES)]
+    t0 = time.perf_counter()
+    jdb, feed, algo, executors = load_algo(config, nodes, queues, specs, running, dev,
+                                             bids=bids, overrides=ov)
+    load_s = time.perf_counter() - t0
+    log(f"market path: world built in {world_s:.1f} s, loaded through the JobDb in "
+        f"{load_s:.1f} s; shapes {[(n, d.size, dict(d.resources)) for n, d in shapes]}")
+
+    # host timers around the market layer, and the optimiser's placements
+    pricer = algo.gang_pricer
+    t_pricer = _timed(pricer.price_pool_gangs_columnar)
+    pricer.price_pool_gangs_columnar = t_pricer
+    t_sweep = _timed(IC.calculate_idealised_values_columnar)
+    t_value = _timed(I.value_of_jobs)
+    t_opt = _timed(algo._optimise_stuck)
+    algo._optimise_stuck = t_opt
+    opt_placed = [0]
+    apply_outcome = algo._apply_outcome
+
+    def counting_apply(txn, outcome, *a, **kw):
+        if outcome.termination == "optimiser":
+            opt_placed[0] += len(outcome.scheduled)
+        return apply_outcome(txn, outcome, *a, **kw)
+
+    algo._apply_outcome = counting_apply
+    # the round the feed assembled: the first K-B call of the cycle, its
+    # device problem and statics (a rollback re-run would come after)
+    seen: dict = {}
+    round_fn = M.schedule_round
+
+    def recording_round(p, **kw):
+        r = round_fn(p, **kw)
+        seen.setdefault("round", (p, kw, r))
+        return r
+
+    devcache = feed.devcache_for("default")
+    cache_apply = devcache.apply
+
+    def recording_apply(bundle):
+        dp = cache_apply(bundle)
+        if seen.get("want_truth"):
+            with uncounted():
+                seen["truth"] = (bundle.materialize(), dp, devcache.last_apply)
+        return dp
+
+    devcache.apply = recording_apply
+    saved = (IC.calculate_idealised_values_columnar, I.value_of_jobs, M.schedule_round)
+    IC.calculate_idealised_values_columnar = t_sweep
+    I.value_of_jobs = t_value
+    M.schedule_round = recording_round
+    V.reset_verify_state()
+    X.reset_cadence()
+    vtok = V.arm_default(True)
+    etok = X.arm_default(EXPLAIN_INTERVAL)
+    cycles = []
+    held = []
+    try:
+        kernels.reset_launches()
+        for c, fresh in enumerate(fresh_by_cycle):
+            if c == MARKET_PRICE_MOVE:
+                algo.bid_prices = moved
+            check = c in (1, MARKET_PRICE_MOVE)
+            seen.clear()
+            seen["want_truth"] = c >= 1
+            for t in (t_pricer, t_sweep, t_value, t_opt):
+                t.s, t.calls = 0.0, 0
+            opt_placed[0] = 0
+            from armada_tpu_torch.jobdb.job import Job
+
+            txn = jdb.write_txn()
+            if fresh:
+                txn.upsert([Job(spec=dataclasses.replace(s, pools=("default",)), queued=True,
+                                validated=True, pools=("default",)) for s in fresh])
+            torch.cuda.synchronize(dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t1 = time.perf_counter()
+            ev[0].record()
+            res = algo.schedule(txn, executors, MARKET_NOW_NS)
+            ev[1].record()
+            torch.cuda.synchronize(dev)
+            wall_s = time.perf_counter() - t1
+            cycle_device_ms = ev[0].elapsed_time(ev[1])
+            txn.commit()
+            (ps,) = res.pools
+            dp, kw, kres = seen["round"]
+            with uncounted():
+                round_ms, _ = cuda_ms(lambda: round_fn(dp, **kw), reps=1)
+                if c >= 1:
+                    truth, tdp, how = seen["truth"]
+                    problems_equal(tdp, truth, f"market cycle {c}: resident vs materialize()")
+                if check:
+                    statics = {k: kw[k] for k in ("prefer_large", "commit_k") if k in kw}
+                    pkw = dict({k: kw[k] for k in ("num_levels", "max_slots", "slot_width")},
+                               **round_statics(dp, **statics))
+                    torch.cuda.synchronize(dev)
+                    tp = time.perf_counter()
+                    plain = schedule_round_plain(dp, **pkw)
+                    torch.cuda.synchronize(dev)
+                    plain_ms = (time.perf_counter() - tp) * 1e3
+                    max_err(kres, plain)
+                    held.append(dict(cycle=c, apply=how, plain_ms=plain_ms,
+                                     kernel_iters=int(kres.kernel_iters),
+                                     spot_price=float(kres.spot_price)))
+            o = ps.outcome
+            prices = {n: (r.schedulable, r.price, r.unschedulable_reason)
+                      for n, r in ps.indicative_prices.items()}
+            ideal = ps.idealised_values
+            if not ideal or not all(np.isfinite(v) for v in ideal.values()):
+                raise AssertionError(f"market cycle {c}: idealised values {ideal}")
+            cyc = dict(
+                cycle=c, wall_s=wall_s, cycle_device_ms=cycle_device_ms, round_ms=round_ms,
+                apply=devcache.last_apply, pricer_ms=t_pricer.s * 1e3,
+                idealised_ms=t_sweep.s * 1e3, realised_ms=t_value.s * 1e3,
+                optimiser_ms=t_opt.s * 1e3, optimiser_placements=opt_placed[0],
+                scheduled=len(res.scheduled), preempted=len(res.preempted),
+                failed=len(o.failed), spot_price=o.spot_price, iterations=o.num_iterations,
+                indicative_prices=prices, idealised_total=float(sum(ideal.values())),
+                realised_total=float(sum(ps.realised_values.values())),
+                idealised_queues=len(ideal), explained=o.explain is not None,
+            )
+            cycles.append(cyc)
+            log(f"market cycle {c} [{smi_line()}]: wall {wall_s:.3f} s (device span "
+                f"{cycle_device_ms:.1f} ms), {cyc['apply']} apply, round {round_ms:.2f} ms "
+                f"(CUDA events, K-B replayed), pricer {cyc['pricer_ms']:.1f} ms, idealised sweep "
+                f"{cyc['idealised_ms']:.1f} ms, realised values {cyc['realised_ms']:.2f} ms, "
+                f"optimiser {cyc['optimiser_ms']:.1f} ms ({opt_placed[0]} placements); "
+                f"scheduled {cyc['scheduled']} preempted {cyc['preempted']} failed "
+                f"{cyc['failed']}; spot price {o.spot_price}; indicative prices {prices}; "
+                f"idealised {cyc['idealised_total']:.1f} over {len(ideal)} queues, realised "
+                f"{cyc['realised_total']:.1f}")
+        launches = dict(kernels.LAUNCHES)
+        vs = V.verify_state()
+        if vs.failures or vs.rounds < 1 + MARKET_STEADY_CYCLES:
+            raise AssertionError(f"market path verification: {vs.snapshot()}")
+    finally:
+        IC.calculate_idealised_values_columnar, I.value_of_jobs, M.schedule_round = saved
+        V.disarm_default(vtok)
+        X.disarm_default(etok)
+    for k in ("round", "compact", "fair_shares", "slab", "verify", "explain"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the market path")
+    if not all(cyc["scheduled"] > 0 for cyc in cycles):
+        raise AssertionError("a market cycle scheduled nothing")
+    if len(held) != 2:
+        raise AssertionError(f"market path: {len(held)} rounds held against the plain version")
+    applies = [cyc["apply"] for cyc in cycles]
+    if applies[MARKET_PRICE_MOVE + 1:] and "scatter" not in applies[MARKET_PRICE_MOVE + 1:]:
+        raise AssertionError(f"market path: no scatter after the price move: {applies}")
+    log(f"market path: {1 + MARKET_STEADY_CYCLES} cycles ({applies}); the rounds of cycles 1 "
+        f"and {MARKET_PRICE_MOVE} equal their plain versions in every field {held}, every "
+        f"steady cycle's resident problem the host tables; launches {launches}")
+    return dict(world_s=world_s, load_s=load_s, cycles=cycles, held=held, launches=launches,
+                small=small)
+
+
 # --- the simulator path --------------------------------------------------------------
 
 # The small world: gangs and preemption after testdata/golden/
@@ -3295,9 +3770,11 @@ SIM_SMALL_WORKLOAD = dict(name="w", queues=[
 # The scale world: two pools, 8,000 nodes of 32 cpu / 128 Gi and 2,000 of
 # 16 cpu / 64 Gi / 8 GPUs; 64 queues, 100,000 jobs from three templates a
 # queue with shifted-exponential runtimes; a 10 s schedule interval, cut at
-# 10 cycles (five schedule events over the two pools).
+# 6 cycles (three schedule events over the two pools, so that the market
+# path fits in the script's time).
 SIM_QUEUES = 64
-SIM_MAX_TIME_S = 45.0
+SIM_MAX_TIME_S = 25.0
+SIM_SCALE_CYCLES = 6
 
 
 def sim_scale_specs():
@@ -3494,8 +3971,9 @@ def simulator_path(dev) -> dict:
             f"round ms): " + ", ".join(
                 f"({r['pool']}, {r['wall_s']:.2f}, {r['build_s']:.2f}, {r['round_ms']:.1f})"
                 for r in timer.rows))
-    if len(runs[0]["result"].cycles) != 10:
-        raise AssertionError(f"the scale world ran {len(runs[0]['result'].cycles)} cycles, not 10")
+    if len(runs[0]["result"].cycles) != SIM_SCALE_CYCLES:
+        raise AssertionError(f"the scale world ran {len(runs[0]['result'].cycles)} cycles, not "
+                             f"{SIM_SCALE_CYCLES}")
     if _sim_view(runs[0]["result"]) != _sim_view(runs[K11_SLOTS]["result"]):
         raise AssertionError("the scale world's trace differs with the fit cache armed")
     if runs[K11_SLOTS]["launches"]["round_fit_cache"] <= 0:
@@ -3937,6 +4415,10 @@ def main() -> int:
         name = "variety market world" if market else "variety world"
         report[name] = check_round(name, vp, round_meta(vctx), dev)
 
+    # the market cycle's small worlds, each on the card and with device="cpu"
+    market_small_report = market_small(dev)
+    mark("market small worlds")
+
     # the incremental path on a small world first: every check, in seconds
     from armada_tpu_torch.models import run_scheduling_round
 
@@ -3973,6 +4455,9 @@ def main() -> int:
     pools = pools_path(dev, world, pools_small)
     report["pools"] = pools
     mark("pools path")
+    del world
+    report["market"] = market = market_path(dev, market_small_report)
+    mark("market path")
     report["simulator"] = simulator_path(dev)
     mark("simulator path")
     report["phase_s"] = phase_s
@@ -3981,8 +4466,13 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
-    print(json.dumps({"kernels": mp_report["rows"] + loop["rows"] + inc["rows"] + pools["rows"]
-                      + mesh_rows(mesh_m, mesh_cyc)}))
+    rows = (mp_report["rows"] + loop["rows"] + inc["rows"] + pools["rows"]
+            + mesh_rows(mesh_m, mesh_cyc))
+    for row in rows:
+        # the market path's launches beside each row's own path's
+        if row["name"] in ("round", "compact", "fair_shares", "slab", "verify", "explain"):
+            row["market_launches"] = market["launches"][row["name"]]
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -939,17 +939,33 @@ def test_feed_independence_tracking():
 
 
 def test_algo_refuses_what_is_not_ported():
+    """Nothing of the algo's configuration is refused any more: market
+    pools, bid prices, the gang pricer, the optimiser and priority
+    overrides construct as in the JAX package, and the one refusal left is
+    the JAX package's own -- a market pool without a bid-price provider
+    raises ValueError on both sides."""
+    from armada_tpu.scheduler.providers import StaticBidPriceProvider as JaxBids
+    from armada_tpu_torch.scheduler.providers import (
+        StaticBidPriceProvider, StaticPriorityOverrideProvider,
+    )
+
+    for ns, bids in ((_Jax, JaxBids({})), (_Port, StaticBidPriceProvider({}))):
+        base = dict(queues=lambda: [], clock_ns=lambda: NOW_NS, **ns.device_kw)
+        market = ns.SchedulingConfig(pools=(ns.PoolConfig("m", market_driven=True),))
+        with pytest.raises(ValueError, match="market driven"):
+            ns.Algo(market, **base)
+        algo = ns.Algo(market, bid_prices=bids, **base)
+        assert algo.gang_pricer is None and algo.optimiser is None
     ns = _Port
     base = dict(queues=lambda: [], clock_ns=lambda: NOW_NS, device="cpu")
-    market = ns.SchedulingConfig(pools=(ns.PoolConfig("m", market_driven=True),))
-    with pytest.raises(NotImplementedError):
-        ns.Algo(market, **base)
-    with pytest.raises(NotImplementedError):
-        ns.Algo(ns.SchedulingConfig(optimiser_enabled=True), **base)
-    with pytest.raises(NotImplementedError):
-        ns.Algo(ns.SchedulingConfig(), priority_overrides=object(), **base)
-    with pytest.raises(NotImplementedError):
-        ns.Algo(ns.SchedulingConfig(), bid_prices=object(), **base)
+    priced = ns.SchedulingConfig(pools=(ns.PoolConfig(
+        "m", market_driven=True,
+        gangs_to_price=(("one", t_config.GangDefinition(size=1, resources={"cpu": 1})),)),))
+    assert ns.Algo(priced, bid_prices=StaticBidPriceProvider({}), **base).gang_pricer is not None
+    opt = ns.Algo(ns.SchedulingConfig(optimiser_enabled=True), collect_stats=False, **base)
+    assert opt.optimiser is not None and opt.collect_stats
+    ov = StaticPriorityOverrideProvider({("default", "q"): 2.0})
+    assert ns.Algo(ns.SchedulingConfig(), priority_overrides=ov, **base).priority_overrides is ov
 
 
 def test_armed_loop_shapes_raise(monkeypatch):
