@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from armada_tpu_torch import kernels
+from armada_tpu_torch.core.watchdog import add_reset_hook
 from armada_tpu_torch.kernels.build import check, library, placed, stream_handle
 
 _IN = ("g_state", "run_evicted", "run_rescheduled", "slot_gang", "slot_nodes", "slot_counts",
@@ -238,3 +239,15 @@ def compact_result_stacked(result, real_gangs, real_runs, *, fcap: int, ecap: in
         return compact_result_stacked_plain(result, real_gangs, real_runs, fcap=fcap, ecap=ecap)
     return _launch(result, real_gangs, real_runs, int(result.g_state.shape[0]), fcap, ecap,
                    "compact_stacked")
+
+
+def reset_device_state() -> None:
+    """Drop every workspace of status words and cached plan, so the next call on the card starts from freshly zeroed
+    scratch.  The watchdog's reset hooks call it on every backend transition
+    (core/watchdog.py): a failed or abandoned round can stop between a
+    kernel's passes and leave its scratch dirty."""
+    _PLANS.clear()
+    _WORKSPACES.clear()
+
+
+add_reset_hook(reset_device_state)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from armada_tpu_torch import kernels
+from armada_tpu_torch.core.watchdog import add_reset_hook
 from armada_tpu_torch.kernels.build import check, library, placed, stream_handle
 
 _IN = ("compat", "compat_pre_type", "node_type", "node_ok", "node_total", "node_axes",
@@ -163,3 +164,14 @@ def explain_round(compat, compat_pre_type, node_type, node_ok, node_total, node_
     check(lib.armada_explain(call.ctypes.data, stream_handle()), "explain kernel")
     kernels.LAUNCHES["explain"] += 1
     return out
+
+
+def reset_device_state() -> None:
+    """Drop every cached plan and its scratch, so the next call on the card starts from freshly zeroed
+    scratch.  The watchdog's reset hooks call it on every backend transition
+    (core/watchdog.py): a failed or abandoned round can stop between a
+    kernel's passes and leave its scratch dirty."""
+    _PLANS.clear()
+
+
+add_reset_hook(reset_device_state)

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from armada_tpu_torch import kernels
+from armada_tpu_torch.core.watchdog import add_reset_hook
 from armada_tpu_torch.kernels.build import check, library, placed, stream_handle
 
 ALIGN = 512
@@ -266,3 +267,14 @@ def slice_plan(tree, i: int):
     arena, fields = layout.output(dev)
     src = ptrs[layout.src_idx] + int(i) * layout.row_bytes
     return type(tree)(*fields), layout.fill(src, arena.data_ptr())
+
+
+def reset_device_state() -> None:
+    """Drop every cached layout and descriptor table, so the next call on the card starts from freshly zeroed
+    scratch.  The watchdog's reset hooks call it on every backend transition
+    (core/watchdog.py): a failed or abandoned round can stop between a
+    kernel's passes and leave its scratch dirty."""
+    _LAYOUTS.clear()
+
+
+add_reset_hook(reset_device_state)

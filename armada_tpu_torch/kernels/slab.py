@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from armada_tpu_torch import kernels
+from armada_tpu_torch.core.watchdog import add_reset_hook
 from armada_tpu_torch.kernels.build import check, library, placed, stream_handle
 
 MAX_FIELDS = 24
@@ -306,3 +307,15 @@ def apply_delta(prev, sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, fulls, gq_args,
     check(lib.armada_slab_apply(call.ctypes.data, stream), "slab apply kernel")
     kernels.LAUNCHES["slab" if mesh is None else "slab_sharded"] += 1
     return out
+
+
+def reset_device_state() -> None:
+    """Drop every workspace and cached plan, so the next call on the card starts from freshly zeroed
+    scratch.  The watchdog's reset hooks call it on every backend transition
+    (core/watchdog.py): a failed or abandoned round can stop between a
+    kernel's passes and leave its scratch dirty."""
+    _PLANS.clear()
+    _WORKSPACES.clear()
+
+
+add_reset_hook(reset_device_state)

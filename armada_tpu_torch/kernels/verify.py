@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from armada_tpu_torch import kernels
+from armada_tpu_torch.core.watchdog import add_reset_hook
 from armada_tpu_torch.kernels.build import check, library, placed, stream_handle
 
 _IN = ("node_total", "node_ok", "node_axes", "run_req", "run_node", "run_queue",
@@ -263,3 +264,15 @@ def verify_round_stacked(node_total, node_ok, node_axes, run_req, run_node, run_
     if not g_state.is_cuda:
         return verify_round_stacked_plain(args[:18] + (alloc[:, 0],) + args[19:], real_gangs)
     return _launch(args, real_gangs, int(g_state.shape[0]), "verify_stacked")
+
+
+def reset_device_state() -> None:
+    """Drop every workspace and cached plan, so the next call on the card starts from freshly zeroed
+    scratch.  The watchdog's reset hooks call it on every backend transition
+    (core/watchdog.py): a failed or abandoned round can stop between a
+    kernel's passes and leave its scratch dirty."""
+    _PLANS.clear()
+    _WORKSPACES.clear()
+
+
+add_reset_hook(reset_device_state)

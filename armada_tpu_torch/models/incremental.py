@@ -43,6 +43,7 @@ from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 
+from armada_tpu_torch.analysis.tsan import check_generation as _tsan_check_gen
 from armada_tpu_torch.core.config import SchedulingConfig
 from armada_tpu_torch.core.keys import (
     NodeTypeIndex,
@@ -56,6 +57,7 @@ from armada_tpu_torch.models.problem import (
     SchedulingProblem,
     _pad,
 )
+from armada_tpu_torch.ops.trace import recorder as _trace
 
 
 def _node_bucket(bucket: int) -> int:
@@ -999,7 +1001,8 @@ class IncrementalBuilder:
     def submit_many(
         self, specs: Sequence[JobSpec], banned: Optional[Mapping] = None
     ) -> None:
-        self._submit_many(specs, banned)
+        with _trace().span("submit_many", pool=self.pool, n=len(specs)):
+            self._submit_many(specs, banned)
 
     def _pc_row(self, name: str) -> tuple:
         """(npc, level, pc_index) for a priority-class name, memoized --
@@ -1133,7 +1136,8 @@ class IncrementalBuilder:
         self._release_single(self.jobs.remove(job_id.encode()))
 
     def remove_many(self, job_ids: Sequence[str]) -> None:
-        self._remove_many(job_ids)
+        with _trace().span("remove_many", pool=self.pool, n=len(job_ids)):
+            self._remove_many(job_ids)
 
     def _remove_many(self, job_ids: Sequence[str]) -> None:
         """Batched remove() for the cycle's decision feedback (~1k scheduled
@@ -1183,7 +1187,8 @@ class IncrementalBuilder:
         self.lease_many([r])
 
     def lease_many(self, rs: Sequence[RunningJob]) -> None:
-        self._lease_many(rs)
+        with _trace().span("lease_many", pool=self.pool, n=len(rs)):
+            self._lease_many(rs)
 
     def _lease_many(self, rs: Sequence[RunningJob]) -> None:
         """Batched lease: one np.insert on the run table for the whole
@@ -1461,12 +1466,13 @@ class IncrementalBuilder:
         queue_penalty: Optional[Mapping] = None,
         away_mode: bool = False,
     ) -> tuple[SchedulingProblem, HostContext]:
-        return self._assemble(
-            global_tokens=global_tokens,
-            queue_tokens=queue_tokens,
-            queue_penalty=queue_penalty,
-            away_mode=away_mode,
-        )
+        with _trace().span("assemble", pool=self.pool, dense=True):
+            return self._assemble(
+                global_tokens=global_tokens,
+                queue_tokens=queue_tokens,
+                queue_penalty=queue_penalty,
+                away_mode=away_mode,
+            )
 
     def _assemble(
         self,
@@ -1998,7 +2004,8 @@ class IncrementalBuilder:
         return rr_cols, ev_cols
 
     def prefetch_content(self, devcache) -> int:
-        return self._prefetch_content(devcache)
+        with _trace().span("prefetch_content", pool=self.pool):
+            return self._prefetch_content(devcache)
 
     def _prefetch_content(self, devcache) -> int:
         """Shadow-pipeline stage (b): ship decision-INDEPENDENT dirty slot
@@ -2063,6 +2070,11 @@ class IncrementalBuilder:
             # flight (device loss mid-prefetch) -- the devcache was replaced
             # or reset, so these rows must STAY in the next bundle's payload.
             return 0
+        # Race harness (ARMADA_TSAN=1): marking rows shipped is only sound
+        # under the generation the scatter began under -- if the guard above
+        # ever regresses, this records the stale write instead of letting it
+        # silently drop rows from the next bundle.
+        _tsan_check_gen("builder.prefetch_mark", gen, self._prefetch_gen)
         self._shipped_sg = len(sg.dirty_log)
         self._shipped_rr = len(rr.dirty_log)
         return int(i_sing.shape[0] + rr_d.shape[0])
@@ -2086,11 +2098,12 @@ class IncrementalBuilder:
         queue_tokens=None,
         queue_penalty: Optional[Mapping] = None,
     ):
-        return self._assemble_delta(
-            global_tokens=global_tokens,
-            queue_tokens=queue_tokens,
-            queue_penalty=queue_penalty,
-        )
+        with _trace().span("assemble", pool=self.pool):
+            return self._assemble_delta(
+                global_tokens=global_tokens,
+                queue_tokens=queue_tokens,
+                queue_penalty=queue_penalty,
+            )
 
     def _assemble_delta(
         self,

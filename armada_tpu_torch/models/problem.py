@@ -28,6 +28,7 @@ Layout conventions (see SURVEY.md section 7 "Tensor reformulation"):
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -1351,6 +1352,16 @@ def _fetch_compact(ctx: HostContext, dispatched):
     buf_dev, fcap, ecap = dispatched
     buf = buf_dev.cpu().numpy()
     TRANSFER_STATS.count_down(buf.nbytes)
+    if os.environ.get("ARMADA_FAULT"):
+        # round_corrupt `bytes` drill (core/faults): flip a bit in the
+        # buffer AS RECEIVED -- decode and the verification fingerprint both
+        # see the corrupted copy, as with real transfer corruption.  Slot 3
+        # (sched_count) is decode-inert, so only the fingerprint catches it.
+        from armada_tpu_torch.core import faults as _faults
+
+        if _faults.active("round_corrupt", modes=("bytes",)):
+            buf = buf.copy()
+            buf[min(3, buf.size - 1)] ^= np.int32(1 << 20)
     return _parse_compact(buf, ctx, fcap, ecap)
 
 

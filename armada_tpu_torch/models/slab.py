@@ -28,8 +28,12 @@ once per logical row, and the bundle carries a ``materialize`` thunk that
 builds the complete host problem; the scattered device state equals a
 fresh upload of it bit for bit (tests/test_torch_slab.py).
 
-Replaces the JAX package's armada_tpu/models/slab.py; its trace spans and
-race-harness generation checks are left out (they carry no decision).
+Replaces the JAX package's armada_tpu/models/slab.py, with its trace spans
+(`devcache_apply`, `scatter_content`) and its race-harness generation
+checks (analysis/tsan.py).  Every upload goes to
+core/watchdog.data_device(): the CPU while the supervisor is degraded, else
+the cache's device; a resident problem on another device than that is
+dropped at the next apply, which then uploads whole.
 """
 
 from __future__ import annotations
@@ -39,8 +43,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from armada_tpu_torch.analysis.tsan import GenerationGuard
+from armada_tpu_torch.core.watchdog import data_device, launch_guard
 from armada_tpu_torch.models.xfer import TRANSFER_STATS
 from armada_tpu_torch.ops.scatter import set_drop
+from armada_tpu_torch.ops.trace import recorder as _trace
 
 _ID_DTYPE = "S48"
 
@@ -300,10 +307,14 @@ class DeviceDeltaCache:
     A full upload happens whenever the bundle's shape/epoch signature
     changes (slab growth, node-fleet change, first cycle) or a bundle was
     skipped (seq gap) -- the JAX package's own semantics.  `device` is where
-    the problem lives: the card unless the caller passes device='cpu'."""
+    the problem lives: the card unless the caller passes device='cpu' (or
+    the CPU while the watchdog's supervisor is degraded)."""
 
     def __init__(self, device="cuda"):
         self.device = _resolve_device(device)
+        # where this apply uploads: data_device(self.device), resolved at
+        # each apply's entry and pinned for the call
+        self._dev = self.device
         # the scatter program fork() gave this cache; None: `_apply_fn()`'s
         # default, kernels.slab.apply_delta (K-H on a card, the plain
         # version on the CPU)
@@ -320,6 +331,11 @@ class DeviceDeltaCache:
         # full uploads (the fleet rarely changes).
         self._host_ids: dict = {}
         self._node_dev: dict = {}
+        # Race harness (analysis/tsan, ARMADA_TSAN=1): every mutation must
+        # commit under the generation it began under; reset() bumps.  An
+        # abandoned watchdog worker finishing a scatter after a reset is
+        # recorded as a violation.
+        self._tsan = GenerationGuard("devcache")
 
     def fork(self, apply_fn=None) -> "DeviceDeltaCache":
         """A copy of this cache at its current state that scatters with
@@ -334,8 +350,11 @@ class DeviceDeltaCache:
         return twin
 
     def reset(self) -> None:
-        """Drop everything that refers to device buffers, so the next
-        apply() is a full upload."""
+        """Drop everything that refers to device buffers (the resident
+        problem, the seq chain, the reusable node-tensor copies), so the
+        next apply() is a full upload to the device the supervisor targets
+        then."""
+        self._tsan.bump()
         self._sig = None
         self._seq = None
         self._prev = None
@@ -353,10 +372,10 @@ class DeviceDeltaCache:
         problem field (None for unnamed payloads); the mesh cache overrides
         this to place each field in its mesh layout."""
         if isinstance(arr, torch.Tensor):
-            return arr.to(self.device)
+            return arr.to(self._dev)
         # a copy: later host mutations never reach the device state, and
         # 0-d scalars stay 0-d
-        return torch.tensor(np.asarray(arr), device=self.device)
+        return torch.tensor(np.asarray(arr), device=self._dev)
 
     def _count_up(self, arr, name=None) -> None:
         """Per-field upload accounting; the mesh cache overrides it to count
@@ -376,12 +395,12 @@ class DeviceDeltaCache:
         stream.  On a card it is staged through pinned memory: a copy from
         pageable memory waits for the stream to drain, and the content
         prefetch uploads its rows while a round is still on the card."""
-        if self.device.type != "cuda":
+        if self._dev.type != "cuda":
             return self._to_device(arr)
         arr = np.asarray(arr)
         host = torch.empty(arr.shape, dtype=_torch_dtype(arr.dtype), pin_memory=True)
         host.numpy()[...] = arr
-        return host.to(self.device, non_blocking=True)
+        return host.to(self._dev, non_blocking=True)
 
     def _full_upload(self, problem):
         out = []
@@ -425,7 +444,22 @@ class DeviceDeltaCache:
         return apply_fn(self._prev, sg_i, sg_rows, rr_i, rr_rows, ev_rows, fulls, gq_args,
                         ev_base=int(ev_base), splice=splice)
 
+    def _sync_device(self) -> None:
+        """Entry guard of apply()/scatter_content(): resolve where this call
+        uploads (the CPU while the supervisor is degraded), and drop a
+        resident problem that lies elsewhere -- the next apply is then a
+        full upload from the host tables; nothing is copied off the card."""
+        launch_guard("slab apply")
+        dev = data_device(self.device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._dev = dev
+        if self._prev is not None and self._prev.g_req.device != dev:
+            self.reset()
+
     def apply(self, bundle: DeltaBundle):
+        self._sync_device()
+        tok = self._tsan.begin()
         if (
             self._sig != bundle.sig
             or self._prev is None
@@ -435,7 +469,10 @@ class DeviceDeltaCache:
             self._sig = bundle.sig
             self._seq = bundle.seq
             self.last_apply = "full"
-            return self._full_upload(bundle.materialize())
+            with _trace().span("devcache_apply", full_upload=True):
+                problem = bundle.materialize()
+                self._tsan.commit(tok, "apply/full-upload")
+                return self._full_upload(problem)
         self._seq = bundle.seq
 
         # Steady-state no-op: a cycle that changed nothing -- no dirty gang
@@ -458,9 +495,21 @@ class DeviceDeltaCache:
                 for name, arr in bundle.fulls.items()
             )
         ):
+            self._tsan.commit(tok, "apply/steady-noop")
             self.last_apply = "noop"
             return self._prev
 
+        with _trace().span(
+            "devcache_apply",
+            full_upload=False,
+            sg_rows=int(bundle.sg_idx.shape[0]),
+            rr_rows=int(bundle.rr_idx.shape[0]),
+            splice=bundle.gq_splice is not None,
+        ):
+            self._tsan.commit(tok, "apply/scatter")
+            return self._apply_scatter(bundle)
+
+    def _apply_scatter(self, bundle: DeltaBundle):
         G = self._prev.g_req.shape[0]
         fulls = {}
         for name, arr in bundle.fulls.items():
@@ -510,6 +559,8 @@ class DeviceDeltaCache:
 
         Guards: same sig and the very next seq as the last bundle; anything
         else returns False and the rows ride the next bundle."""
+        self._sync_device()
+        tok = self._tsan.begin()
         if (
             self._prev is None
             or self._sig != sig
@@ -517,7 +568,10 @@ class DeviceDeltaCache:
             or seq != self._seq + 1
         ):
             return False
-        self._prev = self._scatter(sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, {}, (),
-                                   ev_base, False)
+        with _trace().span("scatter_content", sg_rows=int(sg_idx.shape[0]),
+                           rr_rows=int(rr_idx.shape[0])):
+            self._tsan.commit(tok, "scatter_content")
+            self._prev = self._scatter(sg_idx, sg_cols, rr_idx, rr_cols, ev_cols, {}, (),
+                                       ev_base, False)
         self.content_prefetches += 1
         return True

@@ -35,9 +35,13 @@ and the host decode.  It certifies the round two independent ways:
   and ``verdict_of`` re-derives the folds from them, so a truncated or
   corrupted copy is caught independently of the invariants.
 
-Any violation raises ``RoundVerificationError``.  The port has no failover
-rung yet, so the error propagates out of run_round_on_device: nothing is
-re-run quietly.
+Any violation raises ``RoundVerificationError``, which walks the failover
+ladder (models/__init__.py): the refused round strikes the device
+quarantine (scheduler/quarantine.py) and is re-run from the host tables on
+a smaller mesh or the CPU rung.  A refusal on the CPU rung propagates: that
+rung is the trusted floor.  The ``round_corrupt`` drills
+(maybe_corrupt_result here, and the fetched-bytes leg in
+problem._fetch_compact) exercise it.
 
 Arming: ``ARMADA_VERIFY`` (1/0) wins, else the latest armed plane default
 (arm_default / disarm_default tokens), else the library default (off).
@@ -211,10 +215,48 @@ def reset_verify_state() -> VerifyState:
 
 
 def healthz_block() -> dict:
-    """The health report's `verify` block: last verdict and failure census.
-    (The JAX package adds its device quarantine scoreboard here; the port
-    has no quarantine yet.)"""
-    return verify_state().snapshot()
+    """The health report's `verify` block: last verdict, failure census and
+    the device quarantine scoreboard (scheduler/quarantine.py)."""
+    block = verify_state().snapshot()
+    from armada_tpu_torch.scheduler.quarantine import device_quarantine
+
+    block["quarantine"] = device_quarantine().snapshot()
+    return block
+
+
+# ---------------------------------------------------------------- drills ----
+
+
+def maybe_corrupt_result(result):
+    """The device-side legs of the ``round_corrupt`` fault site (core/faults;
+    one-shot): `header` perturbs the scheduled_count scalar, `lane` points
+    a placement lane at an out-of-range node -- each breaks exactly the
+    redundancy its invariant cross-checks.  The `bytes` leg (a bit flipped
+    in the fetched buffer) lives in problem._fetch_compact, where the bytes
+    are.  A new RoundResult; the round's own tensors are not written.  One
+    dict lookup when ARMADA_FAULT is unset."""
+    from armada_tpu_torch.core import faults
+
+    if not os.environ.get("ARMADA_FAULT"):
+        return result
+    mode = faults.active("round_corrupt", modes=("header", "lane"))
+    if mode is None:
+        return result
+    if mode == "header":
+        return result._replace(scheduled_count=result.scheduled_count + 7)
+    # lane: point a placement lane at an out-of-range node, and force it
+    # live (count >= 1, n_slots >= 1) so the drill is observable even on a
+    # round that placed nothing
+    N = result.alloc.shape[1]
+    slot_nodes = result.slot_nodes.clone()
+    slot_nodes[0, 0] = N
+    slot_counts = result.slot_counts.clone()
+    slot_counts[0, 0] = slot_counts[0, 0].clamp(min=1)
+    return result._replace(
+        slot_nodes=slot_nodes,
+        slot_counts=slot_counts,
+        n_slots=result.n_slots.clamp(min=1),
+    )
 
 
 # ---------------------------------------------------------------- kernel ----

@@ -7,9 +7,13 @@ On a mesh (parallel/mesh_slab.py) an upload of a node-axis-sharded field
 lands nbytes / shards per shard: `up_chip_bytes` accumulates that share
 (equal to `up_bytes` when nothing is sharded) and `up_sharded_transfers`
 counts those uploads.  On one card every shard lies on the same device, so
-the share is an accounting of the layout, not of separate memories."""
+the share is an accounting of the layout, not of separate memories.  Each
+transfer is also an instant note on the active cycle trace (ops/trace.py:
+`xfer_up`, `xfer_down`)."""
 
 from __future__ import annotations
+
+from armada_tpu_torch.ops.trace import recorder as _trace
 
 
 class TransferStats:
@@ -34,10 +38,14 @@ class TransferStats:
         self.up_chip_bytes += per_chip
         if shards > 1:
             self.up_sharded_transfers += 1
+            _trace().note("xfer_up", bytes=int(nbytes), shards=int(shards))
+        else:
+            _trace().note("xfer_up", bytes=int(nbytes))
 
     def count_down(self, nbytes: int) -> None:
         self.down_transfers += 1
         self.down_bytes += int(nbytes)
+        _trace().note("xfer_down", bytes=int(nbytes))
 
     def snapshot(self) -> dict:
         out = {

@@ -23,8 +23,10 @@ in the bundle's `fulls`.  What the subclass keeps of the JAX design:
 * `_full_upload` asserts divisibility: the builders align their node
   bucket to `mesh_axis_multiple()`, so a misaligned problem is a build bug.
 
-There is no device supervisor yet (ROADMAP item 8): "degraded" reads false,
-so the cache follows the serving ladder alone.
+While the watchdog's supervisor is degraded (core/watchdog.py) the mesh is
+out of the loop: the cache resolves no mesh, and the base cache uploads to
+the CPU rung through data_device().  The base cache's spans and generation
+checks cover the mesh cache's applies too.
 """
 
 from __future__ import annotations
@@ -76,6 +78,10 @@ class MeshDeviceDeltaCache(DeviceDeltaCache):
             return self._mesh
         if self._none_sticky:
             return None
+        from armada_tpu_torch.core.watchdog import supervisor
+
+        if supervisor().degraded:
+            return None
         mesh = self._serving.serving_mesh(self.device)
         if mesh is None:
             return None
@@ -89,13 +95,16 @@ class MeshDeviceDeltaCache(DeviceDeltaCache):
 
     def _sync_mesh(self) -> None:
         """Entry guard of apply()/scatter_content(): if the serving ladder
-        moved since this cache resolved its mesh, re-resolve; the resolution
+        moved (or the supervisor degraded) since this cache resolved its
+        mesh, re-resolve; the resolution
         is pinned for the rest of the call.  On one card every mesh's layout
         is the plain layout, so the resident problem stays where the new
         mesh divides it (always for no mesh); else it is dropped and the
         next apply is a full upload onto the new mesh."""
+        from armada_tpu_torch.core.watchdog import supervisor
+
         if self._mesh is not None:
-            new = self._serving.serving_mesh(self.device)
+            new = None if supervisor().degraded else self._serving.serving_mesh(self.device)
             if new != self._mesh:
                 if not self._resident_fits(new):
                     self.reset()

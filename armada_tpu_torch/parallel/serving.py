@@ -4,36 +4,47 @@ The port's copy of the JAX package's parallel/serving.py.  `MeshServing`
 answers "over how many shards do rounds run right now"::
 
     full mesh (ARMADA_MESH / configure(n))
-      -> smaller mesh      (degrade: halve, one slab re-upload)
+      -> smaller mesh      (a failed round: halve, re-run, one slab re-upload)
       -> single device     (ladder exhausted: the plain single-card path)
+      -> the CPU rung      (the watchdog's, core/watchdog.py)
 
-A degrade or a restore fires the module-level reset hooks
-(core/watchdog.fire_reset_hooks): every feed replaces its device caches,
-so the next cycle's apply is one full upload onto the current mesh.
-Divisibility is a build-time property: the incremental builders round
-their node bucket up to `mesh_axis_multiple()`, and `shard_problem` pads.
+A failed round walks it in models/__init__.py (`_failover_ladder`): each
+rung re-runs the same round from the host tables on `_run_round_on_mesh`
+before the CPU rung is tried.  A degrade or a restore fires the
+module-level reset hooks (core/watchdog.fire_reset_hooks): every feed
+replaces its device caches, so the next cycle's apply is one full upload
+onto the current mesh.  Divisibility is a build-time property: the
+incremental builders round their node bucket up to `mesh_axis_multiple()`,
+and `shard_problem` pads.
 
-Two differences from the JAX package:
+Restore mirrors the watchdog's re-probe: after a degrade a background
+thread probes the card in a subprocess (core/watchdog.probe_device) and
+re-arms the FULL mesh after N consecutive healthy probes, unless the
+promotion gate (the device quarantine) vetoes.  Knobs are the watchdog's:
+``ARMADA_REPROBE_INTERVAL_S`` (0 disables: the caller calls
+``restore()``), ``ARMADA_REPROBE_HEALTHY``, ``ARMADA_REPROBE_TIMEOUT_S``.
 
-* The clamp.  `_mesh_for` halves the shard count on a card down to the
-  largest cluster of K-K's loop the card can launch
-  (cudaOccupancyMaxActiveClusters > 0); the JAX package clamps to the chips
-  it sees.  On the CPU there is no clamp.
-* No restore probe thread: it waits for ROADMAP item 8's re-probe (the JAX
-  behaviour at ARMADA_REPROBE_INTERVAL_S=0); `restore()` is called by its
-  caller.
+One difference from the JAX package, the clamp:
+
+`_mesh_for` halves the shard count on a card down to the largest cluster
+of K-K's loop the card can launch (cudaOccupancyMaxActiveClusters > 0);
+the JAX package clamps to the chips it sees.  On the CPU there is no
+clamp.
 """
 
 from __future__ import annotations
 
-import logging
+import os
 import threading
 import time
 from typing import Optional
 
 import torch
 
-_log = logging.getLogger(__name__)
+from armada_tpu_torch.analysis.tsan import make_lock
+from armada_tpu_torch.core.logging import get_logger
+
+_log = get_logger(__name__)
 
 
 def _cluster_limit(n: int, device: torch.device, capacity=None) -> int:
@@ -55,7 +66,7 @@ class MeshServing:
     """Process-wide mesh serving state (see module docstring)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("parallel.mesh_serving")
         self._requested = 0  # configure(n) / ARMADA_MESH (0 = off)
         self._active = 0  # current ladder rung (shards rounds target)
         self._meshes: dict = {}  # (shards, device) -> constructed Mesh
@@ -64,6 +75,8 @@ class MeshServing:
         self.restores = 0
         self.last_degrade_reason: Optional[str] = None
         self.last_degrade_ts: Optional[float] = None
+        self._restore_thread: Optional[threading.Thread] = None
+        self._probe = None  # patchable in tests; default watchdog.probe_device
 
     # --- config ---------------------------------------------------------------
 
@@ -135,9 +148,10 @@ class MeshServing:
     # --- transitions ----------------------------------------------------------
 
     def degrade(self, reason: str):
-        """One rung down the ladder: halve the mesh and fire the reset hooks.
-        Returns the new (smaller) Mesh, or None when the ladder is
-        exhausted (the single-card path next)."""
+        """One rung down the ladder: halve the mesh, fire the reset hooks,
+        start the restore probe.  Returns the new (smaller) Mesh for the
+        caller's re-run, or None when the ladder is exhausted (the
+        single-card path next, then the watchdog's CPU rung)."""
         with self._lock:
             if self._requested < 2 or self._active < 2:
                 return None
@@ -151,6 +165,9 @@ class MeshServing:
         from armada_tpu_torch.core.watchdog import fire_reset_hooks
 
         fire_reset_hooks()
+        self._start_restore_probe()
+        # the rung THIS transition decided on -- never re-read _active: a
+        # fast concurrent restore() would hand back the mesh that just failed
         return self._mesh_for(new_n)
 
     def restore(self) -> bool:
@@ -175,6 +192,50 @@ class MeshServing:
         fire_reset_hooks()
         return True
 
+    # --- restore probe --------------------------------------------------------
+
+    def _start_restore_probe(self) -> None:
+        from armada_tpu_torch.core.watchdog import supervisor
+
+        if supervisor().reprobe_interval_s() <= 0:
+            return  # the caller restores
+        with self._lock:
+            if self._restore_thread is not None and self._restore_thread.is_alive():
+                return
+            t = threading.Thread(target=self._restore_loop, daemon=True, name="mesh-restore")
+            self._restore_thread = t
+        t.start()
+
+    def _restore_loop(self) -> None:
+        from armada_tpu_torch.core.watchdog import probe_device, supervisor
+
+        sup = supervisor()
+        probe = self._probe or probe_device
+        timeout = float(os.environ.get("ARMADA_REPROBE_TIMEOUT_S", "60"))
+        healthy = 0
+        need = sup.healthy_checks()
+        while True:
+            with self._lock:
+                done = self._requested < 2 or self._active >= self._requested
+            if done or _MESH_SERVING is not self:
+                break
+            time.sleep(sup.reprobe_interval_s())
+            if _MESH_SERVING is not self:
+                break
+            ok, detail = probe(timeout)
+            if ok:
+                healthy += 1
+                _log.info("mesh re-probe healthy (%s): %d/%d", detail, healthy, need)
+                if healthy >= need and self.restore():
+                    break
+                # gate-blocked (quarantine): keep polling, so an operator
+                # clear restores on the next healthy pass
+            else:
+                healthy = 0
+                _log.info("mesh re-probe still failing: %s", detail)
+        with self._lock:
+            self._restore_thread = None
+
     # --- export ---------------------------------------------------------------
 
     def snapshot(self) -> dict:
@@ -198,7 +259,8 @@ def mesh_serving() -> MeshServing:
 
 
 def reset_mesh_serving() -> MeshServing:
-    """Fresh state (tests)."""
+    """Fresh state (tests).  A restore thread of the old instance exits on
+    its next poll."""
     global _MESH_SERVING
     _MESH_SERVING = MeshServing()
     return _MESH_SERVING

@@ -15,10 +15,12 @@ ported, and so is the market half: market-driven pools served through a
 bid-price provider, the indicative gang pricer, the idealised and realised
 values (the mega-node round runs on the card too), the optimiser and
 priority overrides (scheduler/providers.py, pricer.py, idealised*.py,
-optimiser.py).  Market pools stay out of the pool-parallel window.  The
-trace spans carry no decision and are left out; the watchdog's degraded
-attribution reads "never degraded" until its supervisor is ported
-(ROADMAP item 8).
+optimiser.py).  Market pools stay out of the pool-parallel window.  Each
+pool's `PoolStats.degraded` says whether its round paid a failover window
+(core/watchdog.py), attributed per pool in both the serial loop and the
+pool-parallel window as the JAX package attributes it; the cycle trace
+carries the `round`, `apply_outcome` and `away_round` spans and the
+`pool_overlap_ratio` annotation (ops/trace.py).
 
 Executor health filters mirror scheduling_algo.go:
   * stale executors (heartbeat older than executor_timeout_s) are excluded
@@ -43,6 +45,7 @@ from armada_tpu_torch.core.pipeline import (
     prefetch_worthwhile,
 )
 from armada_tpu_torch.core.types import JobSpec, NodeSpec, Queue, RunningJob
+from armada_tpu_torch.core.watchdog import supervisor as _supervisor
 from armada_tpu_torch.jobdb.job import Job, JobRun
 from armada_tpu_torch.jobdb.jobdb import WriteTxn
 from armada_tpu_torch.models import (
@@ -53,6 +56,7 @@ from armada_tpu_torch.models import (
     run_round_on_device,
     run_scheduling_round,
 )
+from armada_tpu_torch.ops.trace import recorder as _trace
 from armada_tpu_torch.scheduler.executors import ExecutorSnapshot
 from armada_tpu_torch.scheduler.ratelimit import SchedulingRateLimiters
 
@@ -65,8 +69,9 @@ class PoolStats:
     num_queued: int
     num_running: int
     # Wall seconds of THIS pool's round (prepare + dispatch share + fetch +
-    # apply) and whether it paid a failover window -- always False in the
-    # port, which has no failover ladder yet.
+    # apply) and whether it paid a failover window: the supervisor was
+    # degraded before the round, its dispatch walked the ladder, or the
+    # fallback count moved across it (the degraded-attribution rule).
     round_s: float = 0.0
     degraded: bool = False
     # Market pools only (cycle_metrics.go:534,455,456): configured-shape
@@ -393,6 +398,7 @@ class FairSchedulingAlgo:
         def commit_outcome(
             pool, outcome, *, num_queued, num_running, pool_nodes,
             market_b=None, running=(), bid_price_of=None, round_s=0.0,
+            degraded=False,
         ):
             """The common per-pool tail -- consume, apply, overlay, stats --
             shared by the serial loop and the pool-parallel window's fetch
@@ -400,7 +406,9 @@ class FairSchedulingAlgo:
             order (and so the event order) is identical in every mode."""
             nonlocal queued_jobs
             consume_round(outcome)
-            self._apply_outcome(txn, outcome, pool, executor_of_node, now_ns, result)
+            with _trace().span("apply_outcome", pool=pool, scheduled=len(outcome.scheduled),
+                               preempted=len(outcome.preempted)):
+                self._apply_outcome(txn, outcome, pool, executor_of_node, now_ns, result)
             if incremental:
                 # Later pools must see this pool's leases/preemptions; the
                 # overlay registry keeps this O(this pool's changes), not
@@ -416,6 +424,7 @@ class FairSchedulingAlgo:
                 num_queued=num_queued,
                 num_running=num_running,
                 round_s=round_s,
+                degraded=degraded,
             )
             if pool in market_pools:
                 stats.market = True
@@ -472,16 +481,24 @@ class FairSchedulingAlgo:
         parallel_used = [False]
         pools_t0 = time.monotonic()
 
-        def finish_window_round(entry, fin) -> None:
+        def finish_window_round(entry, fin, deg0, fb_seen, failed) -> None:
             pool = entry["pool"]
+            sup = _supervisor()
             t0 = time.monotonic()
-            res, outcome = fin()
+            with _trace().span("round", pool=pool, parallel=True):
+                res, outcome = fin()
             if self.collect_stats:
                 collect_round_stats(
                     res, entry["pview"], entry["ctx"], self.config, outcome
                 )
             dt = time.monotonic() - t0 + entry["prep_s"]
             pool_round_s[pool] = dt
+            # The degraded-attribution rule across the WINDOW: deg0 was read
+            # BEFORE the dispatch phase (a fast re-probe can promote back
+            # before any fetch returns); dispatch-phase failovers are
+            # attributed exactly through dispatch_failed, finish-phase ones
+            # through the fallback count's move since the previous finish.
+            fb_now = sup.fallbacks
             commit_outcome(
                 pool,
                 outcome,
@@ -489,7 +506,9 @@ class FairSchedulingAlgo:
                 num_running=entry["num_running"],
                 pool_nodes=entry["pool_nodes"],
                 round_s=dt,
+                degraded=deg0 or failed or fb_now > fb_seen[0],
             )
+            fb_seen[0] = fb_now
 
         def flush_window() -> None:
             if not window:
@@ -498,18 +517,24 @@ class FairSchedulingAlgo:
             window.clear()
             window_demand[0] = 0
             specs = [e["spec"] for e in entries]
+            sup = _supervisor()
+            deg0 = sup.degraded
             t0 = time.monotonic()
-            finishes, stacked, stacked_pools, _dispatch_failed = dispatch_pool_rounds(
+            finishes, stacked, stacked_pools, dispatch_failed = dispatch_pool_rounds(
                 specs, self.config, device=self.device
             )
             share = (time.monotonic() - t0) / len(entries)
+            # the baseline AFTER the dispatch: dispatch-phase fallbacks are
+            # attributed per pool through dispatch_failed, so only
+            # finish-phase moves ride the counter
+            fb_seen = [sup.fallbacks]
             cycle_stacked[0] += stacked
             cycle_stacked[1] += stacked_pools
             if len(entries) >= 2:
                 parallel_used[0] = True
-            for e, fin in zip(entries, finishes):
+            for i, (e, fin) in enumerate(zip(entries, finishes)):
                 e["prep_s"] += share
-                finish_window_round(e, fin)
+                finish_window_round(e, fin, deg0, fb_seen, i in dispatch_failed)
 
         for pool in pools:
             pool_nodes = [n for n in nodes if n.pool == pool]
@@ -615,15 +640,24 @@ class FairSchedulingAlgo:
                     shadow.append(
                         lambda p=pool: self.feed.prefetch_content(skip_pool=p)
                     )
-                res, outcome = run_round_on_device(
-                    pview,
-                    ctx,
-                    self.config,
-                    device=self.device,
-                    device_problem=lambda dc=devcache, b_=bundle: dc.apply(b_),
-                    host_problem=bundle.materialize,
-                    shadow_work=shadow,
-                )
+                # Mesh serving: the round span carries the shard count the
+                # resident slab is split over (absent = single card), so a
+                # timeline shows which ladder rung served it.
+                mesh_n = getattr(devcache, "mesh_devices", 0)
+                span_kw = {"mesh_devices": mesh_n} if mesh_n else {}
+                sup = _supervisor()
+                deg0 = sup.degraded
+                fb0 = sup.fallbacks  # a plain read: snapshot() takes the lock
+                with _trace().span("round", pool=pool, **span_kw):
+                    res, outcome = run_round_on_device(
+                        pview,
+                        ctx,
+                        self.config,
+                        device=self.device,
+                        device_problem=lambda dc=devcache, b_=bundle: dc.apply(b_),
+                        host_problem=bundle.materialize,
+                        shadow_work=shadow,
+                    )
                 if self.collect_stats:
                     collect_round_stats(res, pview, ctx, self.config, outcome)
                 dt = time.monotonic() - prep_t0  # prepare + round + stats
@@ -633,45 +667,52 @@ class FairSchedulingAlgo:
                     num_running=num_running, pool_nodes=pool_nodes,
                     market_b=b, running=running, bid_price_of=bid_price_of,
                     round_s=dt,
+                    degraded=deg0 or sup.fallbacks > fb0,
                 )
             else:
                 if not queued_jobs and not running:
                     continue
                 num_queued, num_running = len(queued_jobs), len(running)
                 g_tokens, q_tokens = round_tokens()
+                sup = _supervisor()
+                deg0 = sup.degraded
+                fb0 = sup.fallbacks  # a plain read: snapshot() takes the lock
                 t0 = time.monotonic()
-                outcome = run_scheduling_round(
-                    self.config,
-                    pool=pool,
-                    nodes=pool_nodes,
-                    queues=pool_queues(pool),
-                    queued_jobs=queued_jobs,
-                    running=running,
-                    collect_stats=self.collect_stats,
-                    bid_price_of=bid_price_of,
-                    global_tokens=g_tokens,
-                    queue_tokens=q_tokens,
-                    banned_nodes=banned_nodes,
-                    queue_penalty=penalty_by_pool.get(pool),
-                    device=self.device,
-                )
+                with _trace().span("round", pool=pool, legacy=True):
+                    outcome = run_scheduling_round(
+                        self.config,
+                        pool=pool,
+                        nodes=pool_nodes,
+                        queues=pool_queues(pool),
+                        queued_jobs=queued_jobs,
+                        running=running,
+                        collect_stats=self.collect_stats,
+                        bid_price_of=bid_price_of,
+                        global_tokens=g_tokens,
+                        queue_tokens=q_tokens,
+                        banned_nodes=banned_nodes,
+                        queue_penalty=penalty_by_pool.get(pool),
+                        device=self.device,
+                    )
                 dt = time.monotonic() - t0
                 pool_round_s[pool] = dt
                 commit_outcome(
                     pool, outcome, num_queued=num_queued,
                     num_running=num_running, pool_nodes=pool_nodes,
                     running=running, bid_price_of=bid_price_of, round_s=dt,
+                    degraded=deg0 or sup.fallbacks > fb0,
                 )
         flush_window()
         if pool_round_s:
             # Cycle-level pool observability: the overlap ratio (sum of
             # per-pool round seconds over the pool section's wall clock --
-            # ~1.0 serial, > 1.0 when dispatches overlapped fetches) and the
-            # pool_serving ledger.
+            # ~1.0 serial, > 1.0 when dispatches overlapped fetches) rides
+            # the cycle root span; the pool_serving ledger keeps the rest.
             from armada_tpu_torch.scheduler.pool_serving import pool_serving_stats
 
             wall = max(time.monotonic() - pools_t0, 1e-9)
             overlap = sum(pool_round_s.values()) / wall
+            _trace().annotate(pool_overlap_ratio=round(overlap, 3))
             pool_serving_stats().record_cycle(
                 parallel=parallel_used[0],
                 armed=pool_parallel_armed,
@@ -729,33 +770,34 @@ class FairSchedulingAlgo:
                 if not host_nodes or not away_jobs:
                     continue
                 g_tokens, q_tokens = round_tokens()
-                outcome = run_scheduling_round(
-                    self.config,
-                    pool=host,
-                    nodes=host_nodes,
-                    queues=pool_queues(host),
-                    queued_jobs=[
-                        dataclasses.replace(j, pools=(host,))
-                        for j in away_jobs
-                    ],
-                    running=(
-                        self.feed.running_of(host, txn)
-                        if incremental
-                        else host_running(host)
-                    ),
-                    collect_stats=False,
-                    bid_price_of=(
-                        _pool_pricer(host)
-                        if self.bid_prices is not None
-                        else None
-                    ),
-                    away_mode=True,
-                    global_tokens=g_tokens,
-                    queue_tokens=q_tokens,
-                    banned_nodes=banned_nodes,
-                    queue_penalty=penalty_by_pool.get(host),
-                    device=self.device,
-                )
+                with _trace().span("away_round", host=host, home=home_pool):
+                    outcome = run_scheduling_round(
+                        self.config,
+                        pool=host,
+                        nodes=host_nodes,
+                        queues=pool_queues(host),
+                        queued_jobs=[
+                            dataclasses.replace(j, pools=(host,))
+                            for j in away_jobs
+                        ],
+                        running=(
+                            self.feed.running_of(host, txn)
+                            if incremental
+                            else host_running(host)
+                        ),
+                        collect_stats=False,
+                        bid_price_of=(
+                            _pool_pricer(host)
+                            if self.bid_prices is not None
+                            else None
+                        ),
+                        away_mode=True,
+                        global_tokens=g_tokens,
+                        queue_tokens=q_tokens,
+                        banned_nodes=banned_nodes,
+                        queue_penalty=penalty_by_pool.get(host),
+                        device=self.device,
+                    )
                 consume_round(outcome)
                 self._apply_outcome(
                     txn, outcome, host, executor_of_node, now_ns, result, away=True

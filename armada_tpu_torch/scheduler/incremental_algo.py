@@ -21,8 +21,9 @@ The port's copy of the JAX package's scheduler/incremental_algo.py.  The
 feed takes the device its caches live on (the card unless the caller
 passes device="cpu").  While the mesh serving plane is armed
 (parallel/serving.py) every pool's cache is a node-axis-sharded
-MeshDeviceDeltaCache, and the feed's reset hook (core/watchdog.py)
-replaces them all on every ladder transition.
+MeshDeviceDeltaCache.  The feed's reset hook (core/watchdog.py) replaces
+every cache on every backend transition: each rung of the mesh ladder, a
+fallback to the CPU rung and a promotion back to the card.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from armada_tpu_torch.core.types import RunningJob
 from armada_tpu_torch.jobdb.job import Job
 from armada_tpu_torch.models.incremental import IncrementalBuilder
 from armada_tpu_torch.models.slab import DeviceDeltaCache
+from armada_tpu_torch.ops.trace import recorder as _trace
 
 
 class IncrementalProblemFeed:
@@ -89,8 +91,9 @@ class IncrementalProblemFeed:
         for p in config.pools:
             self.builders[p.name] = IncrementalBuilder(config, p.name)
             self.devcaches[p.name] = self.new_device_cache()
-        # A backend-shaped transition (a mesh ladder rung) must drop every
-        # device-resident cache this feed owns.  Held weakly: a closed
+        # A backend transition (a fallback to the CPU rung, a promotion, a
+        # mesh ladder rung) must drop every device-resident cache this feed
+        # owns.  Held weakly: a closed
         # feed is garbage, not a leak in the hook registry.
         from armada_tpu_torch.core.watchdog import add_reset_hook
 
@@ -111,12 +114,15 @@ class IncrementalProblemFeed:
         return DeviceDeltaCache(device=self.device)
 
     def reset_device_state(self) -> None:
-        """Drop device-resident problem state after a mesh transition:
-        REPLACE each pool's cache (never mutate the live object: a round
-        mid-apply keeps the old one, which stays consistent and becomes
-        garbage) and invalidate the builders' prefetch bookkeeping so rows
-        already shipped re-enter the next bundle.  Host tables are
-        untouched."""
+        """Drop device-resident problem state after a backend transition:
+        REPLACE each pool's cache and invalidate the builders' prefetch
+        bookkeeping so rows already shipped re-enter the next bundle.
+        Replacement, never mutation of the live object: the hook can fire
+        from the re-probe thread (a promotion) while a round is mid-apply,
+        or while an abandoned worker still holds the old cache; both keep a
+        consistent object that becomes garbage, and every later cycle takes
+        the fresh cache, whose first apply is a full upload to the device
+        the supervisor targets then.  Host tables are untouched."""
         for pool in list(self.devcaches):
             self.devcaches[pool] = self.new_device_cache()
         for b in self.builders.values():
@@ -208,6 +214,11 @@ class IncrementalProblemFeed:
         # O(K x table x pools).  Accumulate the batch and flush once per
         # builder (one np.insert per column total), the same shape bench.py's
         # backlog load uses.
+        with _trace().span("feed_apply", upserts=len(upserts), deletes=len(deletes),
+                           overlay=record):
+            self._apply_delta_traced(upserts, deletes, record)
+
+    def _apply_delta_traced(self, upserts: dict, deletes, record: bool) -> None:
         for job_id in deletes:
             if job_id in self._overlaid_deletes:
                 continue

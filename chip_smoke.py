@@ -34,7 +34,7 @@ versions on their adversarial cases (`fair_shares_adversarial`,
 their rows.
 Then the pools path: the same world split over 8 pools and driven through
 FairSchedulingAlgo.schedule over a JobDb and an IncrementalProblemFeed, a
-fill and three steady cycles with ARMADA_POOL_PARALLEL=1 (the seven
+fill and two steady cycles with ARMADA_POOL_PARALLEL=1 (the seven
 shape-matched pools stacked into one launch: K-E, K-D, K-F, the stacked
 K-I, K-G) and =0, which must decide the same; its kernels are held against
 their plain versions on small windows of lanes (and K-E and K-G on an
@@ -81,6 +81,25 @@ on the card) and the columnar one, a two-pool world with priority
 overrides and the optimiser's world, each through FairSchedulingAlgo on
 the card and with device="cpu", which must agree.
 
+The resilience phase (the watchdog, the failover ladder and the device
+quarantine; every drill must fail over, and no round outside a drill may
+degrade): on SMALL_WORLD's incremental round with verification on, the
+round_corrupt drills header, lane and bytes are each refused, re-run on
+the CPU rung equal to the honest round, and strike the quarantine, whose
+gate then blocks the re-probe's promotion until clear() (`resilience_small`);
+the pools path's arms run three more cycles on their loaded worlds, the
+parallel arm armed at serve's 120 s deadline -- a clean cycle, a
+device_round:hang drill on the last pool's dispatch under a short
+deadline (that pool alone degraded and re-run on the CPU rung, the
+abandoned worker drained), that pool's round while degraded on
+data_device() against the card's round of the same problem, the re-probe's
+promotion (subprocess probes on the card), and a cycle that uploads every
+pool whole -- while the serial arm runs them undrilled and must decide the
+same (`pools_resilience`); the mesh path's arms run two more cycles, a
+device_round:error drill at 8 shards that must re-run on 4 (K-K) with no
+supervisor failure, then the restore probe's 8 shards and a full re-upload
+(`mesh_resilience`).
+
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", ...}}`.  Details go to
@@ -97,6 +116,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -115,8 +135,13 @@ KB_SYNTH = dict(num_nodes=5_000, num_gangs=100_000, num_queues=64, num_runs=2_50
                 max_gang_cardinality=8, seed=0)
 KB_MARKET = dict(num_nodes=2_000, num_jobs=20_000, num_queues=16, num_runs=1_000, seed=1,
                  market=True)
-KB_EVICT = dict(num_nodes=5_000, num_jobs=50_000, num_queues=64, num_runs=10_000, seed=2)
-VARIETY = dict(num_nodes=3_000, num_jobs=30_000, num_queues=32, num_running=3_000, gangs=300,
+# the eviction and variety worlds are cut to half their jobs, runs (and the
+# variety world's nodes and gangs) for the script's time: their plain
+# rounds on the card ran 6,016 and ~14,000 iterations at ~2.5 ms each; at
+# half they run 3,555 and ~7,000 and still evict, reschedule, end on the
+# burst and (market) set a spot price
+KB_EVICT = dict(num_nodes=5_000, num_jobs=25_000, num_queues=64, num_runs=5_000, seed=2)
+VARIETY = dict(num_nodes=1_500, num_jobs=15_000, num_queues=32, num_running=1_500, gangs=150,
                max_card=16, shape_bucket=1024)
 
 SOURCES = {
@@ -551,11 +576,14 @@ def check_round(name: str, problem, meta: dict, dev, **statics) -> dict:
 
     dp = problem if isinstance(problem.g_req, torch.Tensor) else problem_from_numpy(problem, dev)
     kw = dict(meta, **round_statics(dp, **statics))
+    t0 = time.perf_counter()
     k = KR.schedule_round(dp, **kw)
     S = KR.last_cluster_size()
     torch.cuda.synchronize()
+    t1 = time.perf_counter()
     p = schedule_round_plain(dp, **kw)
     torch.cuda.synchronize()
+    t2 = time.perf_counter()
     max_err(k, p)
     if S > 1:
         with uncounted():
@@ -568,7 +596,8 @@ def check_round(name: str, problem, meta: dict, dev, **statics) -> dict:
     )
     shape = " ".join(f"{a}={b}" for a, b in statics.items())
     log(f"K-B round [{name}{' ' + shape if shape else ''}]: kernel (S={S}"
-        f"{' and S=1' if S > 1 else ''}) == plain {info}")
+        f"{' and S=1' if S > 1 else ''}) == plain {info}; kernel {t1 - t0:.2f} s, plain "
+        f"{t2 - t1:.2f} s, the check {time.perf_counter() - t0:.2f} s")
     return info
 
 
@@ -584,15 +613,17 @@ def window_problem(seed: int = 0, num_queues: int = 100):
 
 
 def check_windows(dev) -> dict:
-    """The adversarial windows (window_problem) at every loop shape, solo at
-    the owner's cluster size and at S = 1, and on a 3-lane stack; each
-    equal to the plain version in every field."""
+    """The adversarial windows (window_problem) plain, at commit_k 8, at
+    batch_k 8 and with prefer-large (the fit cache, which leaves the window
+    walk as it is, runs on the other checks), solo at the owner's cluster
+    size and at S = 1, and on a 3-lane stack; each equal to the plain
+    version in every field."""
     from armada_tpu_torch.models.state import problem_from_numpy
 
     out = {}
     wp, wmeta = window_problem(0)
     wdp = problem_from_numpy(wp, dev)
-    for statics in (dict(), dict(commit_k=LOOP_COMMIT_K), dict(batch_k=8), dict(cache_slots=8),
+    for statics in (dict(), dict(commit_k=LOOP_COMMIT_K), dict(batch_k=8),
                     dict(prefer_large=True)):
         out["windows " + str(statics)] = check_round("adversarial windows", wdp, wmeta, dev,
                                                      **statics)
@@ -839,8 +870,9 @@ def _lanes_of(dp, P: int) -> list:
 
 def check_loop_kernels(dev) -> dict:
     """The round's loop shapes against their plain versions on the card,
-    on small problems, every RoundResult field: K10 at K = 8 and 16 on a
-    burst of singles, the node-type bias (TR > 1) at K = 1 and 8,
+    on small problems, every RoundResult field: K10 at K = 8 on a burst of
+    singles (K = 16 runs on the mesh checks, 32 on the wide ones), the
+    node-type bias (TR > 1) at K = 1 and 8,
     prefer-large on gangs and on evictees; then K-D with each on windows of
     3 lanes, each lane equal to the solo K-B round; then K11
     (check_k11_kernels)."""
@@ -850,7 +882,7 @@ def check_loop_kernels(dev) -> dict:
     out = {}
     bp, bmeta = synthetic_problem(**LOOP_BURST)
     bdp = problem_from_numpy(bp, dev)
-    for k in (1, LOOP_COMMIT_K, 16):
+    for k in (1, LOOP_COMMIT_K):
         out[f"burst K={k}"] = check_round("burst", bdp, bmeta, dev, commit_k=k)
     if 2 * out[f"burst K={LOOP_COMMIT_K}"]["kernel_iters"] > out["burst K=1"]["kernel_iters"]:
         raise AssertionError(f"K={LOOP_COMMIT_K} did not halve the burst's trips: {out}")
@@ -881,9 +913,10 @@ def check_loop_kernels(dev) -> dict:
 def check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta, loop: dict) -> dict:
     """K11, the decision-neutral loop bodies, against the plain version on
     small problems, every RoundResult field: the fit cache at 4 slots (key
-    collisions, misses, overwrites) and 64 on the burst problem, an eviction
-    world, TR > 1, at commit_k 8 and with prefer-large; the pick chain at
-    batch_k 8 with and without TR > 1 and on the eviction world; unroll 4;
+    collisions, misses, overwrites) on the burst problem, an eviction world
+    and TR > 1, at 64 with commit_k 8 on the burst, and at 4 with
+    prefer-large; the pick chain at batch_k 8 with and without TR > 1 and on
+    the eviction world, and at 16 on four queues; unroll 4;
     and 3-lane stacks with the cache and with the chain.  Each must also
     equal the uncached round but for kernel_iters: the burst's, the hetero
     problem's and the prefer-large one's are `loop`'s (check_loop_kernels
@@ -908,7 +941,7 @@ def check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta, loop: dict) -> 
         return info
 
     burst = out["burst base"] = loop["burst K=1"]
-    for slots in (4, 64):
+    for slots in (4,):
         if case("burst", bdp, bmeta, burst, cache_slots=slots)["cache_hits"] == 0:
             raise AssertionError(f"the burst's fit cache never hit at {slots} slots")
     case("burst", bdp, bmeta, burst, cache_slots=64, commit_k=LOOP_COMMIT_K)
@@ -919,8 +952,7 @@ def check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta, loop: dict) -> 
     fp, fmeta = synthetic_problem(**LOOP_FEWQ)
     fdp = problem_from_numpy(fp, dev)
     fewq = check_round("four queues", fdp, fmeta, dev)
-    for k in (8, 16):
-        case("four queues", fdp, fmeta, fewq, batch_k=k)
+    case("four queues", fdp, fmeta, fewq, batch_k=16)
     ep, ectx = world_problem(KB_EVICT, protected=0.0)
     emeta = round_meta(ectx)
     edp = problem_from_numpy(ep, dev)
@@ -929,7 +961,6 @@ def check_k11_kernels(dev, bdp, bmeta, hdp, hmeta, lanes, lmeta, loop: dict) -> 
     case("eviction world", edp, emeta, evict, batch_k=8)
     het = loop["hetero K=1"]
     case("hetero", hdp, hmeta, het, cache_slots=4)
-    case("hetero", hdp, hmeta, het, cache_slots=64, commit_k=LOOP_COMMIT_K)
     case("hetero", hdp, hmeta, het, batch_k=8)
     sp, smeta = synthetic_problem(**KB_SYNTH)
     sdp = problem_from_numpy(sp, dev)
@@ -2444,7 +2475,7 @@ def incremental_path(dev, world, main_outcome) -> dict:
 # pool pads to 16,384 and dispatches solo in the same window.
 POOL_NODES = (5_700,) * 7 + (10_100,)
 POOL_BUCKET = 8_192
-POOL_STEADY_CYCLES = 3
+POOL_STEADY_CYCLES = 2  # 3 until the resilience phase joined the script
 POOL_BURST = 1_000  # fresh specs per steady cycle, 125 a pool
 # the small window the new kernels are held on first: lanes of one shape
 # with different data
@@ -2806,11 +2837,14 @@ class lane_call_times:
                 for name, calls in self.calls.items()}
 
 
-def _pool_arm(dev, world: dict, fresh_by_cycle: list, parallel: bool) -> dict:
+def _pool_arm(dev, world: dict, fresh_by_cycle: list, parallel: bool,
+              res_fresh: list = ()) -> dict:
     """One arm of the pools path: the world loaded, a fill cycle and
     POOL_STEADY_CYCLES steady cycles of FairSchedulingAlgo.schedule, each
     submitting its fresh specs (`fresh_by_cycle[c - 1]`, the same in both
-    arms) and committed.  Returns per-cycle decisions and timings."""
+    arms) and committed, then the resilience cycles on the same loaded
+    world (`pools_resilience`, one cycle a list of `res_fresh`).  Returns
+    per-cycle decisions and timings."""
     import torch
 
     from armada_tpu_torch import kernels
@@ -2935,13 +2969,19 @@ def _pool_arm(dev, world: dict, fresh_by_cycle: list, parallel: bool) -> dict:
                   for n in (names[0], names[-1])}
         if V.verify_state().failures or V.verify_state().rounds < 8 * (1 + POOL_STEADY_CYCLES):
             raise AssertionError(f"pools path verification: {V.verify_state().snapshot()}")
+        resil = None
+        if res_fresh:
+            t_res = time.perf_counter()
+            resil = pools_resilience(dev, (jdb, feed, algo, executors, names), parallel,
+                                     res_fresh)
+            resil["report"]["seconds"] = time.perf_counter() - t_res
     finally:
         V.disarm_default(vtok)
         X.disarm_default(etok)
         os.environ.pop("ARMADA_POOL_PARALLEL", None)
     log(f"pools path [{arm}] launches: {launches}; pool serving {snap}; padded shapes {padded}")
     return dict(arm=arm, load_s=load_s, cycles=cycles, decisions=decisions, launches=launches,
-                serving=snap, padded=padded)
+                serving=snap, padded=padded, resilience=resil)
 
 
 LANE_REPS = 20
@@ -3138,13 +3178,24 @@ def pools_path(dev, world: dict, small: dict) -> dict:
     spec_factory = world["world"][5]
     fresh_by_cycle = [spec_factory(POOL_BURST, 1e6 + 100.0 * c)
                       for c in range(1, 1 + POOL_STEADY_CYCLES)]
+    res_fresh = [spec_factory(POOL_BURST, 2e6 + 100.0 * c) for c in range(RES_POOL_CYCLES)]
     t0 = time.perf_counter()
-    par = _pool_arm(dev, world, fresh_by_cycle, parallel=True)
-    ser = _pool_arm(dev, world, fresh_by_cycle, parallel=False)
+    par = _pool_arm(dev, world, fresh_by_cycle, parallel=True, res_fresh=res_fresh)
+    ser = _pool_arm(dev, world, fresh_by_cycle, parallel=False, res_fresh=res_fresh)
     wall_s = time.perf_counter() - t0
     for c, (a, b) in enumerate(zip(par["decisions"], ser["decisions"])):
         if a != b:
             raise AssertionError(f"pools cycle {c}: the parallel and serial arms decide differently")
+    pr, sr = par.pop("resilience"), ser.pop("resilience")
+    for c, (a, b) in enumerate(zip(pr["decisions"], sr["decisions"])):
+        if a != b:
+            raise AssertionError(f"pools resilience cycle {c}: the armed, drilled parallel arm "
+                                 "decides differently from the undrilled serial arm")
+    if len(pr["decisions"]) != RES_POOL_CYCLES or len(sr["decisions"]) != RES_POOL_CYCLES:
+        raise AssertionError("pools resilience: a cycle is missing")
+    log(f"pools resilience: {RES_POOL_CYCLES} cycles, the drilled parallel arm decides as the "
+        f"undrilled serial arm (the drilled pool included); parallel {pr['report']['seconds']:.1f} "
+        f"s, serial {sr['report']['seconds']:.1f} s")
     n_cycles = 1 + POOL_STEADY_CYCLES
     for cyc in par["cycles"]:
         if cyc["stacked_launches"] < 1 or cyc["stacked_pools"] != 7:
@@ -3250,7 +3301,424 @@ def pools_path(dev, world: dict, small: dict) -> dict:
     for arm in (par, ser):
         arm.pop("decisions")
     return dict(rows=rows, small=small, parallel=par, serial=ser, wall_s=wall_s,
-                N=N, G=G, RJ=RJ, P=P, lanes_in_turns=turns, stacked_round_turns=kd_turns)
+                N=N, G=G, RJ=RJ, P=P, lanes_in_turns=turns, stacked_round_turns=kd_turns,
+                resilience=dict(parallel=pr["report"], serial=sr["report"]))
+
+
+# --- the resilience phase ----------------------------------------------------------
+#
+# The round's runtime on the card (core/watchdog.py, the failover ladder in
+# models/__init__.py, scheduler/quarantine.py): drills that must fail over,
+# and every round outside a drill must stay on the card.
+
+RES_DEADLINE_S = 120.0  # serve's watchdog deadline, for the armed cycles
+RES_DRILL_DEADLINE_S = 5.0  # the hang drill's cycle: a short deadline ...
+RES_HANG_S = 8.0  # ... and a hang above it
+RES_REPROBE_S = 1.0  # the re-probe's interval (the probe: a subprocess on the card)
+RES_WAIT_S = 240.0  # the bounded wait for a promotion or a restore
+RES_STRIKES = 3  # ARMADA_QUARANTINE_STRIKES for the corrupt drills
+RES_POOL_CYCLES = 3  # the pools path's extra cycles: clean armed, drilled, promoted
+RES_CORRUPT_MODES = ("header", "lane", "bytes")
+
+
+# the knobs a drill sets; main() drops inherited values, each phase restores
+# what it found
+RES_ENV = ("ARMADA_WATCHDOG_S", "ARMADA_FAULT", "ARMADA_FAULT_HANG_S")
+
+
+def _save_env() -> dict:
+    return {k: os.environ.get(k) for k in RES_ENV}
+
+
+def _restore_env(saved: dict) -> None:
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def no_fallback(where: str) -> None:
+    """Outside a drill no round may leave the card: fail the run if the
+    supervisor recorded a fallback or is degraded."""
+    from armada_tpu_torch.core import watchdog
+
+    sup = watchdog.supervisor()
+    if sup.fallbacks or sup.degraded:
+        raise AssertionError(f"{where}: a round outside a drill failed over: {sup.snapshot()}")
+
+
+def _reset_resilience(strikes: int = RES_STRIKES) -> None:
+    """Fresh supervisor, fault counters and quarantine (between phases); no
+    automatic re-probe until a phase asks for one."""
+    from armada_tpu_torch.core import faults, watchdog
+    from armada_tpu_torch.scheduler.quarantine import reset_device_quarantine
+
+    faults.reset_counters()
+    watchdog.reset_supervisor().configure(reprobe_interval_s=0)
+    reset_device_quarantine(strikes=strikes)
+
+
+def _wait_for(pred, what: str, limit: float = RES_WAIT_S) -> float:
+    """Poll `pred` until it holds; the seconds it took.  Raises past `limit`."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError(f"{what}: not within {limit:.0f} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _spans_named(span, name: str) -> list:
+    out = [span] if span.name == name else []
+    for c in span.children:
+        out += _spans_named(c, name)
+    return out
+
+
+def _promote_via_reprobe(sup, healthy: int) -> float:
+    """Start the supervisor's re-probe (a subprocess on the card every
+    RES_REPROBE_S, `healthy` healthy probes to promote, then one launch in
+    this process) and wait for the promotion; its seconds."""
+    sup.configure(reprobe_interval_s=RES_REPROBE_S, healthy_checks=healthy)
+    sup._start_reprobe()
+    return _wait_for(lambda: not sup.degraded, "the re-probe's promotion")
+
+
+def resilience_small(dev, small) -> dict:
+    """The round_corrupt drills on SMALL_WORLD's incremental round, with
+    verification on and each drilled round armed at serve's deadline (the
+    ladder is opt-in): each of header, lane and bytes is refused, re-run on
+    the ladder (the CPU rung: the mesh is off) and must equal the honest
+    round on the card; each adds one quarantine strike; the card is
+    promoted in this process between drills; at RES_STRIKES the gate
+    blocks the promotion while the re-probe keeps probing, and the
+    operator's clear() lets the next healthy probe promote."""
+    from armada_tpu_torch.core import faults, watchdog
+    from armada_tpu_torch.models import run_round_on_device
+    from armada_tpu_torch.models import verify as V
+    from armada_tpu_torch.models.incremental import IncrementalBuilder
+    from armada_tpu_torch.models.slab import DeviceDeltaCache
+    from armada_tpu_torch.ops.trace import recorder
+    from armada_tpu_torch.scheduler.quarantine import device_quarantine
+
+    config, nodes, queues, specs, running, _ = small
+    b = IncrementalBuilder(config, "default", queues)
+    b.set_nodes(nodes)
+    b.submit_many(specs)
+    b.lease_many(running)
+    bundle, ctx = b.assemble_delta()
+    caches = []
+
+    def round_():
+        def device_problem():
+            caches.append(DeviceDeltaCache(device=dev))
+            return caches[-1].apply(bundle)
+
+        t0 = time.perf_counter()
+        with recorder().cycle("resilience small round"):
+            _, out = run_round_on_device(bundle.stats_view(), ctx, config, device=dev,
+                                         device_problem=device_problem,
+                                         host_problem=bundle.materialize,
+                                         explain_enabled=False)
+        return out, time.perf_counter() - t0
+
+    no_fallback("before the small world's drills")
+    _reset_resilience()
+    sup = watchdog.supervisor()
+    V.reset_verify_state()
+    vtok = V.arm_default(True)
+    drills = []
+    try:
+        honest, honest_s = round_()
+        if sup.fallbacks or V.verify_state().failures:
+            raise AssertionError("resilience small: the honest round failed over")
+        for i, mode in enumerate(RES_CORRUPT_MODES):
+            faults.reset_counters()
+            saved = _save_env()
+            os.environ["ARMADA_FAULT"] = f"round_corrupt:{mode}"
+            atok = sup.arm(RES_DEADLINE_S)
+            try:
+                out, failover_s = round_()
+            finally:
+                sup.disarm(atok)
+                _restore_env(saved)
+            snap = sup.snapshot()
+            strikes = sum(device_quarantine().snapshot()["strike_totals"].values())
+            equal = _outcome_view(out) == _outcome_view(honest)
+            root = recorder().last(1)[0].root
+            rung = ("cpu" if _spans_named(root, "cpu_failover")
+                    else "mesh" if _spans_named(root, "mesh_degrade_rerun") else "none")
+            if not (equal and rung == "cpu" and snap["fallbacks"] == i + 1 and sup.degraded
+                    and V.verify_state().failures == i + 1 and strikes == i + 1):
+                raise AssertionError(f"resilience small: the {mode} drill did not fail over as "
+                                     f"it must: equal {equal}, {snap}, strikes {strikes}, "
+                                     f"verify {V.verify_state().snapshot()}")
+            d = dict(drill=f"round_corrupt:{mode}", pool="default", rung=rung,
+                     failover_s=failover_s, equal=equal, strikes=strikes,
+                     reason=snap["last_fallback_reason"])
+            if i + 1 < RES_STRIKES:
+                t0 = time.perf_counter()
+                if not sup.promote():
+                    raise AssertionError(f"resilience small: promotion refused: "
+                                         f"{sup.snapshot()['promotion_refused']}")
+                d["promote_s"] = time.perf_counter() - t0
+            drills.append(d)
+            log(f"resilience drill round_corrupt:{mode}: pool default (SMALL_WORLD), refused by "
+                f"verification, rung {rung}, failover {failover_s:.3f} s against the honest "
+                f"round's {honest_s:.3f} s on the card, strikes {strikes}, decisions "
+                f"{'equal' if equal else 'DIFFERENT'}"
+                + (f", promoted in this process in {d['promote_s']:.3f} s" if "promote_s" in d
+                   else ""))
+        # quarantined: healthy probes must not promote until the clear
+        q = device_quarantine().quarantined()
+        if len(q) != 1:
+            raise AssertionError(f"resilience small: quarantine {q}")
+        probes = []
+        real_probe = sup._probe
+
+        def counting_probe(timeout_s):
+            probes.append(time.perf_counter())
+            return real_probe(timeout_s)
+
+        sup._probe = counting_probe
+        sup.configure(reprobe_interval_s=RES_REPROBE_S, healthy_checks=1)
+        sup._start_reprobe()
+        _wait_for(lambda: len(probes) >= 1 and sup._reprobe_thread is not None
+                  and sup.snapshot()["promotion_refused"] is not None,
+                  "a probe while quarantined")
+        if not sup.degraded or "quarantined" not in (sup.snapshot()["promotion_refused"] or ""):
+            raise AssertionError(f"resilience small: the gate did not block: {sup.snapshot()}")
+        t0 = time.perf_counter()
+        cleared = device_quarantine().clear()
+        probe_s = _wait_for(lambda: not sup.degraded, "the promotion after the clear")
+        log(f"resilience quarantine: {RES_STRIKES} strikes quarantined {sorted(q)}; "
+            f"{len(probes)} healthy probes blocked by the gate; clear() of {cleared}, then "
+            f"promoted by the next healthy probe in {probe_s:.2f} s (probe = a subprocess on "
+            f"the card)")
+        after, after_s = round_()
+        if _outcome_view(after) != _outcome_view(honest) or sup.degraded or \
+                caches[-1].resident.g_req.device.type != "cuda":
+            raise AssertionError("resilience small: the round after the promotion")
+        if sup.snapshot()["fallbacks"] != len(RES_CORRUPT_MODES):
+            raise AssertionError(f"resilience small: a round outside a drill degraded: "
+                                 f"{sup.snapshot()}")
+    finally:
+        V.disarm_default(vtok)
+        _reset_resilience()
+    return dict(honest_s=honest_s, drills=drills, clear_probe_s=probe_s, after_s=after_s,
+                gate_blocked_probes=len(probes))
+
+
+def _res_pool_cycle(dev, arm: tuple, fresh: list, name: str):
+    """One cycle of a pools arm's resilience phase, traced: (result, wall s,
+    the cycle trace)."""
+    import torch
+
+    from armada_tpu_torch.jobdb.job import Job
+    from armada_tpu_torch.ops.trace import recorder
+
+    jdb, feed, algo, executors, names = arm
+    txn = jdb.write_txn()
+    per = POOL_BURST // len(names)
+    txn.upsert([
+        Job(spec=dataclasses.replace(s, pools=(names[i // per],)), queued=True, validated=True,
+            pools=(names[i // per],))
+        for i, s in enumerate(fresh)
+    ])
+    rec = recorder()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with rec.cycle(name):
+        res = algo.schedule(txn, executors, POOL_NOW_NS)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    txn.commit()
+    return res, wall, rec.last(1)[0]
+
+
+def _pools_view(res) -> tuple:
+    return ([(job.id, run.id, run.node_id) for job, run in res.scheduled],
+            sorted(job.id for job, _ in res.preempted),
+            [(ps.pool, len(ps.outcome.scheduled)) for ps in res.pools])
+
+
+def pools_resilience(dev, arm: tuple, parallel: bool, fresh_by_cycle: list) -> dict:
+    """The pools path's resilience cycles, on an arm whose world is loaded.
+    The serial arm runs them undrilled and unarmed: the twin.  The parallel
+    arm runs them armed at serve's deadline: (a) a clean cycle -- no
+    fallback, no pool degraded; (b) a device_round:hang drill aimed by
+    after_n at the last pool's dispatch, under a short deadline -- only that
+    pool degraded, in dispatch_failed, one fallback, the reset hooks fired,
+    the cycle's trace annotated; the abandoned worker is drained; then the
+    solo pool's round while degraded (on data_device(), the CPU) against the
+    card's round of the same problem; (c) the re-probe promotes the card;
+    (d) a cycle after the promotion uploads every pool whole (no K-H call)
+    and its resident problems equal the host tables.  Returns the cycles'
+    decisions (held against the other arm's by pools_path) and figures."""
+    import torch
+
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch import models as M
+    from armada_tpu_torch.core import watchdog
+    from armada_tpu_torch.models import run_round_on_device
+    from armada_tpu_torch.models.slab import DeviceDeltaCache
+    from armada_tpu_torch.models.state import problem_from_numpy
+    from armada_tpu_torch.scheduler import algo as algo_mod
+
+    jdb, feed, algo, executors, names = arm
+    cfg = algo.config
+    tag = "parallel" if parallel else "serial"
+    no_fallback(f"before the pools resilience cycles [{tag}]")
+    _reset_resilience()
+    sup = watchdog.supervisor()
+    decisions, rep = [], dict(arm=tag, cycles=[])
+    if not parallel:
+        for c, fresh in enumerate(fresh_by_cycle):
+            res, wall, _ = _res_pool_cycle(dev, arm, fresh, f"pools resilience {c} [{tag}]")
+            decisions.append(_pools_view(res))
+            rep["cycles"].append(dict(cycle=c, wall_s=wall))
+            if sup.fallbacks or any(ps.degraded for ps in res.pools):
+                raise AssertionError(f"pools resilience [{tag}]: an undrilled round degraded")
+        log(f"pools resilience [{tag}]: {len(fresh_by_cycle)} undrilled cycles, "
+            + ", ".join(f"{c['wall_s']:.3f} s" for c in rep["cycles"]))
+        return dict(decisions=decisions, report=rep)
+
+    hooks = []
+    hook = lambda: hooks.append(time.perf_counter())  # noqa: E731
+    watchdog.add_reset_hook(hook)
+    failed_seen: list = []
+    real_dispatch = algo_mod.dispatch_pool_rounds
+
+    def recording(*a, **kw):
+        out = real_dispatch(*a, **kw)
+        failed_seen.append(set(out[3]))
+        return out
+
+    algo_mod.dispatch_pool_rounds = recording
+    drilled = names[-1]
+    saved_env = _save_env()
+    try:
+        # (a) a clean armed cycle
+        os.environ["ARMADA_WATCHDOG_S"] = str(RES_DEADLINE_S)
+        res, wall, tr = _res_pool_cycle(dev, arm, fresh_by_cycle[0], "pools resilience clean")
+        decisions.append(_pools_view(res))
+        if sup.fallbacks or any(ps.degraded for ps in res.pools) or "degraded" in tr.root.args:
+            raise AssertionError(f"pools resilience: the clean armed cycle degraded: "
+                                 f"{sup.snapshot()}")
+        rep["cycles"].append(dict(cycle="clean", wall_s=wall))
+        log(f"pools resilience [parallel]: a clean cycle armed at {RES_DEADLINE_S:.0f} s, "
+            f"{wall:.3f} s, no fallback")
+        # (b) the hang drill on the last pool's dispatch
+        failed_seen.clear()
+        hooks.clear()
+        os.environ.update(ARMADA_WATCHDOG_S=str(RES_DRILL_DEADLINE_S),
+                          ARMADA_FAULT=f"device_round:hang:{len(names) - 1}",
+                          ARMADA_FAULT_HANG_S=str(RES_HANG_S))
+        res, wall, tr = _res_pool_cycle(dev, arm, fresh_by_cycle[1], "pools resilience drill")
+        os.environ.pop("ARMADA_FAULT")
+        os.environ["ARMADA_WATCHDOG_S"] = str(RES_DEADLINE_S)
+        decisions.append(_pools_view(res))
+        degraded = [ps.pool for ps in res.pools if ps.degraded]
+        failover = _spans_named(tr.root, "cpu_failover")
+        failover_s = sum(s.dur_s for s in failover)
+        snap = sup.snapshot()
+        ok = (degraded == [drilled] and failed_seen == [{len(names) - 1}]
+              and snap["fallbacks"] == 1 and sup.degraded and hooks
+              and tr.root.args.get("degraded") is True
+              and str(tr.root.args.get("failover_reason", "")).startswith("RoundTimeout")
+              and len(failover) == 1)
+        if not ok:
+            raise AssertionError(f"pools resilience: the hang drill did not fail over as it "
+                                 f"must: degraded {degraded}, dispatch_failed {failed_seen}, "
+                                 f"{snap}, hooks {len(hooks)}, trace {tr.root.args}")
+        t0 = time.perf_counter()
+        alive = watchdog.drain_abandoned(60.0)
+        drain_s = time.perf_counter() - t0
+        if alive:
+            raise AssertionError("pools resilience: the abandoned worker did not end")
+        rep["cycles"].append(dict(cycle="drill", wall_s=wall, failover_s=failover_s,
+                                  drain_s=drain_s, degraded=degraded,
+                                  reason=snap["last_fallback_reason"]))
+        n_nodes = sum(len(e.nodes) for e in executors if e.pool == drilled)
+        log(f"resilience drill device_round:hang: pool {drilled} ({n_nodes} nodes), rung cpu "
+            f"(dispatch_failed {sorted(failed_seen[0])}), the cycle {wall:.3f} s under a "
+            f"{RES_DRILL_DEADLINE_S:.0f} s deadline, failover (the CPU rung's round) "
+            f"{failover_s:.3f} s, reset hooks fired {len(hooks)}x, abandoned worker drained in "
+            f"{drain_s:.2f} s; trace degraded={tr.root.args.get('degraded')}")
+        # one degraded round: the solo pool's, on data_device()
+        b = feed.builder_for(drilled)
+        bundle, ctx = b.assemble_delta()
+        truth = bundle.materialize()
+        caches = []
+
+        def device_problem():
+            caches.append(DeviceDeltaCache(device=dev))
+            return caches[-1].apply(bundle)
+
+        t0 = time.perf_counter()
+        _, out_cpu = run_round_on_device(bundle.stats_view(), ctx, cfg, device=dev,
+                                         device_problem=device_problem,
+                                         host_problem=bundle.materialize, explain_enabled=False)
+        degraded_s = time.perf_counter() - t0
+        with uncounted():
+            kw = M._kernel_kwargs(bundle.stats_view(), ctx, cfg)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            _, out_card = M._round_body(problem_from_numpy(truth, dev), ctx, kw, dev,
+                                        M._ShadowOnce(()))
+            torch.cuda.synchronize(dev)
+            card_s = time.perf_counter() - t0
+        on_cpu = caches[-1].resident.g_req.device.type == "cpu"
+        equal = _outcome_view(out_cpu) == _outcome_view(out_card)
+        if not (equal and on_cpu and sup.degraded):
+            raise AssertionError(f"pools resilience: the degraded round: equal {equal}, "
+                                 f"uploaded to the CPU {on_cpu}")
+        rep.update(degraded_round_s=degraded_s, card_round_s=card_s)
+        log(f"resilience degraded round: pool {drilled} on data_device() = "
+            f"{caches[-1].resident.g_req.device} in {degraded_s:.3f} s, the card's round of "
+            f"the same problem {card_s:.3f} s; decisions equal")
+        # (c) the re-probe promotes the card
+        probe_s = _promote_via_reprobe(sup, healthy=1)
+        if sup.promotions != 1:
+            raise AssertionError(f"pools resilience: promotions {sup.snapshot()}")
+        rep["probe_s"] = probe_s
+        log(f"resilience promotion: a healthy probe (a subprocess on the card every "
+            f"{RES_REPROBE_S:.0f} s) and one launch in this process promoted the card in "
+            f"{probe_s:.2f} s")
+        # (d) the cycle after the promotion uploads whole
+        captured = {}
+        for pool, dc in feed.devcaches.items():
+            def rec_apply(bundle_, real=dc.apply, pool=pool, dc=dc):
+                dp = real(bundle_)
+                with uncounted():
+                    captured[pool] = (dc.last_apply, dp, bundle_.materialize())
+                return dp
+
+            dc.apply = rec_apply
+        slab0 = kernels.LAUNCHES["slab"]
+        res, wall, tr = _res_pool_cycle(dev, arm, fresh_by_cycle[2], "pools resilience promoted")
+        decisions.append(_pools_view(res))
+        with uncounted():
+            for pool, (how, dp, host) in captured.items():
+                problems_equal(dp, host, f"pools resilience: {pool}'s resident problem after "
+                               "the promotion vs the host tables")
+        if (kernels.LAUNCHES["slab"] != slab0 or len(captured) != len(names)
+                or any(how != "full" for how, _, _ in captured.values())
+                or sup.fallbacks != 1 or sup.degraded or any(ps.degraded for ps in res.pools)):
+            raise AssertionError(f"pools resilience: the cycle after the promotion: K-H "
+                                 f"{kernels.LAUNCHES['slab'] - slab0}, applies "
+                                 f"{ {p: h for p, (h, _, _) in captured.items()} }, "
+                                 f"{sup.snapshot()}")
+        rep["cycles"].append(dict(cycle="promoted", wall_s=wall))
+        log(f"pools resilience [parallel]: the cycle after the promotion {wall:.3f} s, every "
+            f"pool uploaded whole (no K-H call), resident problems equal the host tables")
+    finally:
+        algo_mod.dispatch_pool_rounds = real_dispatch
+        _restore_env(saved_env)
+        watchdog.drain_abandoned(60.0)
+        _reset_resilience()
+    return dict(decisions=decisions, report=rep)
 
 
 # --- the market path ---------------------------------------------------------------
@@ -3558,7 +4026,7 @@ class _timed:
             self.calls += 1
 
 
-def market_path(dev, small: dict) -> dict:
+def market_path(dev, small: dict, built=None) -> dict:
     """bench.py's market deployment at full width through the serving cycle:
     1M jobs x 50k nodes x 64 queues (seed 7, 8 price bands) loaded through a
     JobDb with an IncrementalProblemFeed, FairSchedulingAlgo with a
@@ -3567,7 +4035,9 @@ def market_path(dev, small: dict) -> dict:
     cycles of 1,000 fresh specs, the bids of four queues moving before the
     second.  The first steady cycle's round (and the moved cycle's) is held
     against its plain version on the same device problem, field by field,
-    and every steady cycle's resident problem against the host tables."""
+    and every steady cycle's resident problem against the host tables.
+    `built`: (the MARKET_WORLD world, its seconds) made beforehand (main()
+    builds it while nvcc compiles)."""
     import torch
 
     from armada_tpu_torch import kernels
@@ -3579,9 +4049,10 @@ def market_path(dev, small: dict) -> dict:
     from armada_tpu_torch.scheduler import idealised as I
     from armada_tpu_torch.scheduler import idealised_columnar as IC
 
-    t0 = time.perf_counter()
-    config, nodes, queues, specs, running, spec_factory = synthetic_world(**MARKET_WORLD)
-    world_s = time.perf_counter() - t0
+    if built is None:
+        t0 = time.perf_counter()
+        built = synthetic_world(**MARKET_WORLD), time.perf_counter() - t0
+    (config, nodes, queues, specs, running, spec_factory), world_s = built
     shapes = market_shapes(specs, nodes, config.resource_list_factory())
     config = dataclasses.replace(config, optimiser_enabled=True, pools=(dataclasses.replace(
         config.pools[0], gangs_to_price=shapes),))
@@ -4315,6 +4786,7 @@ def mesh_cycle_path(dev, world) -> dict:
                 f"{len(o2.failed)})")
         if V.verify_state().failures or V.verify_state().rounds < 2 * (1 + STEADY_CYCLES):
             raise AssertionError(f"verification: {V.verify_state().snapshot()}")
+        resil = mesh_resilience(dev, arms, ms, config, spec_factory, 1 + STEADY_CYCLES)
     finally:
         V.disarm_default(vtok)
         ms.configure(0)
@@ -4337,7 +4809,112 @@ def mesh_cycle_path(dev, world) -> dict:
     log(f"K-H under the mesh cache: {kl_ms:.4f} ms against its bound {kl_b[0]:.5f} ms and, with "
         f"the functional copies, {kl_copies[0]:.5f} ms")
     return dict(cycles=cycles, launches=launches, kl_ms=kl_ms, kl_plain_ms=kl_plain_ms,
-                kl_bound=kl_b, kl_bound_with_copies=kl_copies[0], kl_turns=kl_turns)
+                kl_bound=kl_b, kl_bound_with_copies=kl_copies[0], kl_turns=kl_turns,
+                resilience=resil)
+
+
+def mesh_resilience(dev, arms: dict, ms, config, spec_factory, c0: int) -> dict:
+    """Two more cycles of mesh_cycle_path's arms (fresh specs, verification
+    on): in the first, a device_round:error drill in the mesh arm at
+    MESH_SERVE shards, armed -- the round must re-run on the next rung
+    (MESH_SERVE / 2 shards, K-K) from the host tables and equal the
+    single-card arm, with no supervisor failure recorded; the restore probe
+    (a subprocess on the card) then restores MESH_SERVE shards, and in the
+    second cycle the mesh arm's cache uploads whole (the reset hooks fired
+    on the restore) and decides as the single card."""
+    import torch
+
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch.core import watchdog
+    from armada_tpu_torch.core.types import RunningJob
+    from armada_tpu_torch.models import run_round_on_device
+    from armada_tpu_torch.ops.trace import recorder
+
+    no_fallback("before the mesh resilience cycles")
+    _reset_resilience()
+    sup = watchdog.supervisor()
+    cache = arms["mesh"]["cache"]
+    watchdog.add_reset_hook(cache.reset)  # a feed replaces its caches on this hook
+    rep = dict(cycles=[])
+    try:
+        for phase in ("drill", "restored"):
+            fresh = spec_factory(BURST, 100.0 + 100.0 * (c0 + len(rep["cycles"])))
+            outs = {}
+            for arm in ("single", "mesh"):
+                a = arms[arm]
+                ms.configure(MESH_SERVE if arm == "mesh" else 0)
+                for sp in fresh:
+                    a["spec_of"][sp.id] = sp
+                a["builder"].submit_many(fresh)
+                bundle, ctx = a["builder"].assemble_delta()
+                dp = a["cache"].apply(bundle)
+                k0 = dict(kernels.LAUNCHES)
+                drill = arm == "mesh" and phase == "drill"
+                saved = _save_env()
+                if drill:
+                    sup.configure(reprobe_interval_s=RES_REPROBE_S, healthy_checks=1)
+                    os.environ.update(ARMADA_WATCHDOG_S=str(RES_DEADLINE_S),
+                                      ARMADA_FAULT="device_round:error")
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                try:
+                    with recorder().cycle(f"mesh resilience {phase} [{arm}]"):
+                        _, outcome = run_round_on_device(
+                            bundle.stats_view(), ctx, config, device=dev, device_problem=dp,
+                            host_problem=bundle.materialize)
+                finally:
+                    _restore_env(saved)
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+                outs[arm] = outcome
+                if drill:
+                    root = recorder().last(1)[0].root
+                    reruns = _spans_named(root, "mesh_degrade_rerun")
+                    shards = [sp.args["devices"] for sp in reruns]
+                    sharded = kernels.LAUNCHES["round_sharded"] - k0["round_sharded"]
+                    if (shards != [MESH_SERVE // 2] or sharded < 1 or sup.fallbacks
+                            or sup.degraded or ms.snapshot()["degrades"] != 1):
+                        raise AssertionError(f"mesh resilience: the drill did not re-run on "
+                                             f"the next rung: rungs {shards}, K-K {sharded}, "
+                                             f"{sup.snapshot()}, {ms.snapshot()}")
+                    restore_s = _wait_for(
+                        lambda: ms.snapshot()["devices"] == MESH_SERVE and ms.restores == 1,
+                        "the mesh restore") + 0.0
+                    rep.update(rerun_s=sum(sp.dur_s for sp in reruns), drill_wall_s=wall,
+                               restore_s=restore_s, rerun_shards=shards[0])
+                    log(f"resilience drill device_round:error: pool default (mesh of "
+                        f"{MESH_SERVE}), rung {shards[0]} shards (K-K launched {sharded}x), "
+                        f"failover (the re-run) {rep['rerun_s']:.3f} s of a {wall:.3f} s "
+                        f"round, no supervisor failure; the restore probe (a subprocess on "
+                        f"the card) restored {MESH_SERVE} shards {restore_s:.2f} s after the "
+                        "round")
+                if arm == "mesh" and phase == "restored":
+                    if a["cache"].last_apply != "full" or a["cache"].mesh_devices != MESH_SERVE:
+                        raise AssertionError(f"mesh resilience: after the restore the cache "
+                                             f"applied {a['cache'].last_apply} on "
+                                             f"{a['cache'].mesh_devices} shards")
+                    with uncounted():
+                        problems_equal(dp, bundle.materialize(),
+                                       "mesh resilience: the re-upload vs the host tables")
+                a["builder"].remove_many(outcome.scheduled.keys())
+                a["builder"].lease_many([RunningJob(job=a["spec_of"].pop(j), node_id=n)
+                                         for j, n in outcome.scheduled.items()
+                                         if j in a["spec_of"]])
+                for jid in outcome.preempted:
+                    a["builder"].unlease(jid)
+            equal = _outcome_view(outs["single"]) == _outcome_view(outs["mesh"])
+            if not equal:
+                raise AssertionError(f"mesh resilience {phase}: the mesh decides differently "
+                                     "from the single card")
+            rep["cycles"].append(dict(phase=phase, scheduled=len(outs["mesh"].scheduled),
+                                      equal=equal))
+        if sup.fallbacks or ms.snapshot()["degrades"] != 1:
+            raise AssertionError(f"mesh resilience: {sup.snapshot()} {ms.snapshot()}")
+        log(f"mesh resilience: the drilled cycle and the cycle after the restore (a full "
+            f"re-upload on {MESH_SERVE} shards) decide as the single card")
+    finally:
+        _reset_resilience()
+    return rep
 
 
 def mesh_rows(main_mesh: dict, cyc: dict) -> list:
@@ -4359,29 +4936,189 @@ def mesh_rows(main_mesh: dict, cyc: dict) -> list:
     return rows
 
 
+# --- the runtime layer's host cost on steady cycles -------------------------
+
+OVERHEAD_CYCLES = 12  # steady cycles timed a mode, after one fill cycle
+OVERHEAD_POOLS = (250,) * 8  # SMALL_WORLD split into 8 pools
+
+
+def _overhead_incremental(dev, small, cycles: int) -> list:
+    """Wall seconds of `cycles` steady incremental cycles on `small` (one
+    pool: submit BURST fresh specs, assemble_delta, run_round_on_device
+    through DeviceDeltaCache.apply with verification on, the decisions
+    applied back), each ended by a synchronize, after one fill cycle."""
+    import torch
+
+    from armada_tpu_torch.core.types import RunningJob
+    from armada_tpu_torch.models import run_round_on_device
+    from armada_tpu_torch.models import verify as V
+    from armada_tpu_torch.models.incremental import IncrementalBuilder
+    from armada_tpu_torch.models.slab import DeviceDeltaCache
+
+    config, nodes, queues, specs, running, spec_factory = small
+    b = IncrementalBuilder(config, "default", queues)
+    b.set_nodes(nodes)
+    b.submit_many(specs)
+    b.lease_many(running)
+    spec_of = {sp.id: sp for sp in specs}
+    cache = DeviceDeltaCache(device=dev)
+    vtok = V.arm_default(True)
+    walls = []
+    try:
+        for c in range(cycles + 1):
+            fresh = spec_factory(BURST, 1e6 + 100.0 * c) if c else []
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            spec_of.update((sp.id, sp) for sp in fresh)
+            b.submit_many(fresh)
+            bundle, ctx = b.assemble_delta()
+            _, out = run_round_on_device(bundle.stats_view(), ctx, config, device=dev,
+                                         device_problem=lambda: cache.apply(bundle),
+                                         host_problem=bundle.materialize)
+            b.remove_many(out.scheduled.keys())
+            b.lease_many([RunningJob(job=spec_of[j], node_id=n)
+                          for j, n in out.scheduled.items()])
+            for jid in out.preempted:
+                b.unlease(jid)
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+    finally:
+        V.disarm_default(vtok)
+    return walls[1:]
+
+
+def _overhead_pools(dev, small, cycles: int) -> list:
+    """Wall seconds of `cycles` steady 8-pool cycles: `small` split into
+    OVERHEAD_POOLS through a JobDb with the feed, FairSchedulingAlgo in the
+    pool-parallel window (the 8 pools stacked), POOL_BURST fresh specs a
+    cycle spread over the pools, each cycle ended by a synchronize and its
+    commit, after one fill cycle."""
+    import torch
+
+    from armada_tpu_torch.jobdb.job import Job
+
+    os.environ["ARMADA_POOL_PARALLEL"] = "1"
+    try:
+        _, jdb, _, algo, executors, names = pools_world(dict(world=small), dev,
+                                                        pool_nodes=OVERHEAD_POOLS)
+        spec_factory = small[5]
+        per = POOL_BURST // len(names)
+        walls = []
+        for c in range(cycles + 1):
+            fresh = spec_factory(POOL_BURST, 1e6 + 100.0 * c) if c else []
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            txn = jdb.write_txn()
+            txn.upsert([
+                Job(spec=dataclasses.replace(sp, pools=(names[i // per],)), queued=True,
+                    validated=True, pools=(names[i // per],))
+                for i, sp in enumerate(fresh)
+            ])
+            algo.schedule(txn, executors, POOL_NOW_NS)
+            txn.commit()
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+    finally:
+        os.environ.pop("ARMADA_POOL_PARALLEL", None)
+    return walls[1:]
+
+
+def overhead_main() -> int:
+    """`python3 chip_smoke.py --overhead`: the host seconds of steady cycles
+    on SMALL_WORLD -- the incremental cycle and the 8-pool cycle
+    (_overhead_incremental, _overhead_pools) -- unarmed, and armed at
+    serve's deadline where the tree has the watchdog's supervisor; one JSON
+    line.  Uses only entry points that trees without the runtime layer
+    have too, so one call can time a parent and a change in turns (copy
+    this file into the parent's checkout and run it there)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from armada_tpu_torch.core import watchdog
+    from armada_tpu_torch.kernels import build as kbuild
+    from armada_tpu_torch.models.synthetic import synthetic_world
+
+    for k in RES_ENV:
+        os.environ.pop(k, None)
+    smi = smi_line()
+    dev = torch.device("cuda", 0)
+    kbuild.library()
+    small = synthetic_world(**SMALL_WORLD)
+    sup = watchdog.supervisor() if hasattr(watchdog, "supervisor") else None
+    out = dict(card=smi, runtime_layer=sup is not None, cycles=OVERHEAD_CYCLES)
+    for mode in ("unarmed", "armed") if sup is not None else ("unarmed",):
+        tok = sup.arm(RES_DEADLINE_S) if mode == "armed" else None
+        try:
+            for name, fn in (("incremental", _overhead_incremental), ("pools", _overhead_pools)):
+                walls = fn(dev, small, OVERHEAD_CYCLES)
+                out[f"{name}_{mode}_s"] = walls
+                out[f"{name}_{mode}_median_s"] = float(np.median(walls))
+        finally:
+            if tok is not None:
+                sup.disarm(tok)
+        if sup is not None and (sup.fallbacks or sup.degraded):
+            raise AssertionError(f"overhead: a steady cycle failed over: {sup.snapshot()}")
+    print(json.dumps(out))
+    print(smi)
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from armada_tpu_torch.core import watchdog
     from armada_tpu_torch.kernels import build as kbuild
     from armada_tpu_torch.models.synthetic import synthetic_problem, synthetic_world
 
+    # every round outside a drill runs unarmed on the card: an inherited
+    # deadline or drill would let a path be answered on the CPU rung
+    inherited = {k: os.environ.pop(k) for k in RES_ENV if k in os.environ}
+    if inherited:
+        log(f"ignoring the inherited {inherited}: the drills set their own")
+    watchdog.reset_supervisor()
     t_start = time.perf_counter()
     smi = smi_line()
     log(f"card: {smi}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     start_profile_build()
-    kbuild.library()
+    build = {}
+
+    def _build():
+        try:
+            kbuild.library()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            build["error"] = e
+
+    builder = threading.Thread(target=_build, daemon=True)
+    builder.start()
+    # the worlds are host work: make them while nvcc compiles
+    small = synthetic_world(**SMALL_WORLD)
+    tw = time.perf_counter()
+    world = dict(world=synthetic_world(**MAIN_WORLD))
+    world["seconds"] = time.perf_counter() - tw
+    tw = time.perf_counter()
+    market_world = synthetic_world(**MARKET_WORLD)
+    market_world = (market_world, time.perf_counter() - tw)
+    worlds_s = time.perf_counter() - t0
+    builder.join()
+    if "error" in build:
+        raise build["error"]
     build_s = time.perf_counter() - t0
-    log(f"kernels built and loaded in {build_s:.1f} s (nvcc {kbuild.BUILD_INFO.get('seconds', 0.0):.1f} s)")
+    log(f"kernels built and loaded in {build_s:.1f} s (nvcc "
+        f"{kbuild.BUILD_INFO.get('seconds', 0.0):.1f} s), the worlds made beside it in "
+        f"{worlds_s:.1f} s")
     report: dict = dict(card=smi, build_s=build_s, build_log=kbuild.BUILD_INFO.get("log", ""))
     phase_s: dict = {}
     t_mark = [time.perf_counter()]
 
     def mark(name: str) -> None:
+        no_fallback(name)
         now = time.perf_counter()
         phase_s[name] = now - t_mark[0]
         t_mark[0] = now
@@ -4422,17 +5159,15 @@ def main() -> int:
     # the incremental path on a small world first: every check, in seconds
     from armada_tpu_torch.models import run_scheduling_round
 
-    small = synthetic_world(**SMALL_WORLD)
     sc, sn, sq, ss, sr, _ = small
     small_out = run_scheduling_round(sc, pool="default", nodes=sn, queues=sq, queued_jobs=ss,
                                      running=sr, device=dev)
     report["incremental_small"] = incremental_path(dev, dict(world=small), small_out)
     mark("small rounds and incremental")
+    report["resilience_small"] = resilience_small(dev, small)
+    mark("resilience, small world")
 
-    t0 = time.perf_counter()
-    world = dict(world=synthetic_world(**MAIN_WORLD))
-    world["seconds"] = time.perf_counter() - t0
-    log(f"main path: world built in {world['seconds']:.1f} s")
+    log(f"main path: world built in {world['seconds']:.1f} s (beside the kernels' build)")
     mp_report = main_path(dev, world)
     main_outcome = mp_report.pop("outcome")
     main_state = mp_report.pop("state")
@@ -4456,7 +5191,8 @@ def main() -> int:
     report["pools"] = pools
     mark("pools path")
     del world
-    report["market"] = market = market_path(dev, market_small_report)
+    report["market"] = market = market_path(dev, market_small_report, market_world)
+    del market_world
     mark("market path")
     report["simulator"] = simulator_path(dev)
     mark("simulator path")
@@ -4482,4 +5218,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(split_main() if sys.argv[1:] == ["--split"] else main())
+    sys.exit(split_main() if sys.argv[1:] == ["--split"]
+             else overhead_main() if sys.argv[1:] == ["--overhead"] else main())

@@ -20,12 +20,14 @@ import pytest
 import torch
 
 from armada_tpu.models.verify import _verify_kernel_impl
+from armada_tpu_torch.core import watchdog
 from armada_tpu_torch.models import run_round_on_device
 from armada_tpu_torch.models import verify as V
 from armada_tpu_torch.models.fair_scheduler import compact_result_plain, schedule_round
 from armada_tpu_torch.models.problem import build_problem
 from armada_tpu_torch.models.state import problem_from_numpy, result_to_numpy
 from armada_tpu_torch.models.synthetic import synthetic_world, variety_world
+from armada_tpu_torch.scheduler.quarantine import reset_device_quarantine
 
 _JAX_VERIFY = jax.jit(_verify_kernel_impl)
 F32 = np.float32
@@ -222,9 +224,13 @@ def test_armed_round_passes_and_a_corrupted_one_raises(monkeypatch):
         monkeypatch.setattr(M, "schedule_round", corrupted)
         with pytest.raises(V.RoundVerificationError):
             run_round_on_device(problem, ctx, config, device="cpu")
+        # unarmed, the refusal propagates: no rung re-runs the round
         assert state.failures == 1
+        assert not watchdog.supervisor().degraded
     finally:
         V.disarm_default(token)
+        watchdog.reset_supervisor()
+        reset_device_quarantine()
     assert not V.verify_enabled()
 
 
