@@ -1,7 +1,7 @@
 """Chunked sorted-key list: the SortedKeyList subset JobDb uses.
 
-Drop-in for ``sortedcontainers.SortedKeyList`` (add / discard / len / ordered
-iteration) when that package is absent from the toolchain.  Same design:
+Drop-in for ``sortedcontainers.SortedKeyList`` (add / update / discard / len /
+ordered iteration) when that package is absent from the toolchain.  Same design:
 values live in bounded chunks kept in key order, with a per-chunk max-key
 index, so ``add``/``discard`` cost one bisect over the chunk index plus one
 O(load) list insert -- not an O(n) memmove of a million-entry flat list
@@ -106,5 +106,28 @@ class SortedKeyList:
             ci += 1
 
     def update(self, iterable) -> None:
-        for v in iterable:
-            self.add(v)
+        """Add every value.  A batch of at least a quarter of the list is
+        merged in one stable sort and the chunks rebuilt, as
+        sortedcontainers' update does; with distinct keys (the JobDb's end
+        in the job id) the order is the one `add` one by one gives."""
+        values = list(iterable)
+        if len(values) * 4 < self._len:
+            for v in values:
+                self.add(v)
+            return
+        key = self._key
+        pairs = [(k, v) for keys, chunk in zip(self._keys, self._chunks)
+                 for k, v in zip(keys, chunk)]
+        pairs += [(key(v), v) for v in values]
+        pairs.sort(key=_first)
+        self._chunks, self._keys, self._maxes = [], [], []
+        for lo in range(0, len(pairs), _LOAD):
+            part = pairs[lo : lo + _LOAD]
+            self._chunks.append([v for _, v in part])
+            self._keys.append([k for k, _ in part])
+            self._maxes.append(part[-1][0])
+        self._len = len(pairs)
+
+
+def _first(pair):
+    return pair[0]

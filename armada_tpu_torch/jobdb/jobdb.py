@@ -1,7 +1,9 @@
 """JobDb: the in-memory job store with single-writer transactions.
 
 The port's copy of the JAX package's jobdb/jobdb.py, with plain
-threading locks in place of its lock-order checker (analysis/tsan).
+threading locks in place of its lock-order checker (analysis/tsan).  A
+commit adds its queued jobs to each queue's ordered set in one `update`
+(the JAX package adds them one by one; the order is the same).
 
 Equivalent of the reference's jobdb (internal/scheduler/jobdb/jobdb.go:67-84,
 305-324): jobs indexed by id, run id and gang key, plus a per-queue ordered
@@ -122,25 +124,30 @@ class JobDb:
                 old = self._jobs.pop(job_id, None)
                 if old is not None:
                     self._deindex(old)
+            queued: dict = {}
             for job_id, job in upserts.items():
                 old = self._jobs.get(job_id)
                 if old is not None:
                     self._deindex(old)
                 self._jobs[job_id] = job
-                self._index(job)
+                self._index(job, queued)
+            # the batch's queued jobs join their queues' ordered sets at
+            # once (a backlog load is one merge a queue, not a bisect a job)
+            for queue, jobs in queued.items():
+                self._queued.setdefault(queue, SortedKeyList(key=self._order)).update(jobs)
         for fn in self._subscribers:
             fn(upserts, deletes)
 
-    def _index(self, job: Job) -> None:
+    def _index(self, job: Job, queued: dict) -> None:
+        """Index a job; a queued one is appended to `queued[job.queue]`
+        for the caller to add to the queue's ordered set."""
         for run in job.runs:
             self._job_by_run[run.id] = job.id
         gk = gang_key(job)
         if gk is not None:
             self._by_gang.setdefault(gk, set()).add(job.id)
         if job.queued:
-            self._queued.setdefault(
-                job.queue, SortedKeyList(key=self._order)
-            ).add(job)
+            queued.setdefault(job.queue, []).append(job)
         if not job.validated and not job.in_terminal_state():
             self._unvalidated.add(job.id)
 

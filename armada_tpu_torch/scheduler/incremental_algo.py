@@ -23,7 +23,10 @@ passes device="cpu").  While the mesh serving plane is armed
 (parallel/serving.py) every pool's cache is a node-axis-sharded
 MeshDeviceDeltaCache.  The feed's reset hook (core/watchdog.py) replaces
 every cache on every backend transition: each rung of the mesh ladder, a
-fallback to the CPU rung and a promotion back to the card.
+fallback to the CPU rung and a promotion back to the card.  A batch's
+pending deltas remember the job ids they hold (`_Pending`), so a job new
+to the batch skips the per-job purge over every pool (the JAX package
+purges every job); the deltas flushed are the same.
 """
 
 from __future__ import annotations
@@ -37,6 +40,19 @@ from armada_tpu_torch.jobdb.job import Job
 from armada_tpu_torch.models.incremental import IncrementalBuilder
 from armada_tpu_torch.models.slab import DeviceDeltaCache
 from armada_tpu_torch.ops.trace import recorder as _trace
+
+
+class _Pending(dict):
+    """A batch's builder deltas: pool -> (submits, bans, leases, removals),
+    and `ids`, every job id the submits, bans or leases may hold -- so a
+    job seen for the first time in the batch (every job of a load) skips
+    the purge's pass over the pools."""
+
+    __slots__ = ("ids",)
+
+    def __init__(self):
+        super().__init__()
+        self.ids: set = set()
 
 
 class IncrementalProblemFeed:
@@ -152,7 +168,7 @@ class IncrementalProblemFeed:
             self.builders[p.name] = IncrementalBuilder(self.config, p.name)
             self.devcaches[p.name] = self.new_device_cache()
         if self._jobdb is not None:
-            pending = {}
+            pending = _Pending()
             for job in self._jobdb.read_txn().all_jobs():
                 self.apply_job(job, pending)
             self._flush(pending)
@@ -166,7 +182,7 @@ class IncrementalProblemFeed:
             if txn is not None:
                 # Late pool discovery (a node snapshot introduced a pool not
                 # in config): one-time backfill scan.
-                pending = {}
+                pending = _Pending()
                 for job in txn.all_jobs():
                     self.apply_job(job, pending)
                 self._flush(pending)
@@ -225,7 +241,7 @@ class IncrementalProblemFeed:
             if record:
                 self._overlaid_deletes.add(job_id)
             self._remove_everywhere(job_id)
-        pending: dict = {}
+        pending = _Pending()
         overlaid = self._overlaid
         for job in upserts.values():
             if overlaid.get(job.id) is job:
@@ -236,7 +252,7 @@ class IncrementalProblemFeed:
         self._flush(pending)
 
     def _pending_for(
-        self, pending: dict, pool: str
+        self, pending: _Pending, pool: str
     ) -> tuple[dict, dict, dict, dict]:
         entry = pending.get(pool)
         if entry is None:
@@ -248,14 +264,16 @@ class IncrementalProblemFeed:
         return entry
 
     @staticmethod
-    def _purge_pending(pending: dict, job_id: str, leases_too: bool) -> None:
+    def _purge_pending(pending: _Pending, job_id: str, leases_too: bool) -> None:
+        if job_id not in pending.ids:
+            return
         for submits, ban_map, leases, _removals in pending.values():
             submits.pop(job_id, None)
             ban_map.pop(job_id, None)
             if leases_too:
                 leases.pop(job_id, None)
 
-    def _flush(self, pending: dict) -> None:
+    def _flush(self, pending: _Pending) -> None:
         for pool, (submits, bans, leases, removals) in pending.items():
             b = self.builders.get(pool)
             if b is None:
@@ -287,14 +305,14 @@ class IncrementalProblemFeed:
             if b is not None:
                 b.forget_running_gang(queue, gang_id, job_id)
 
-    def apply_job(self, job: Job, pending: Optional[dict] = None) -> None:
+    def apply_job(self, job: Job, pending: Optional[_Pending] = None) -> None:
         """Translate one job's state into builder deltas.  Removes/unleases
         apply immediately (tombstones, cheap); submits/leases go into
         `pending` (flushed by the caller as one batch per builder) or flush
         inline when called one-shot."""
         flush_here = pending is None
         if pending is None:
-            pending = {}
+            pending = _Pending()
         if job.in_terminal_state():
             self._remove_everywhere(job.id)
             self._purge_pending(pending, job.id, leases_too=True)
@@ -321,17 +339,22 @@ class IncrementalProblemFeed:
                 self.pool_restricted.discard(job.id)
                 self.multi_pool_queued.discard(job.id)
                 self.unrestricted_queued.add(job.id)
-            self._purge_pending(pending, job.id, leases_too=True)
-            jid_b = job.id.encode()
+            jid = job.id
+            self._purge_pending(pending, jid, leases_too=True)
+            pending.ids.add(jid)
+            jid_b = jid.encode()
+            ban = tuple(bans) if bans else None
             for name, b in self.builders.items():
                 # Guarded: a fresh submit was never leased anywhere, so the
                 # per-builder probe degrades to O(1) dict checks (the feed
                 # hot loop -- ~100ms/cycle of the round-6 profile).
-                b.unlease_if_present(job.id, jid_b)
-                submits, ban_map, _, _ = self._pending_for(pending, name)
-                submits[spec.id] = spec
-                if bans:
-                    ban_map[spec.id] = tuple(bans)
+                b.unlease_if_present(jid, jid_b)
+                entry = pending.get(name)
+                if entry is None:
+                    entry = self._pending_for(pending, name)
+                entry[0][spec.id] = spec
+                if ban is not None:
+                    entry[1][spec.id] = ban
             if flush_here:
                 self._flush(pending)
             return
@@ -370,6 +393,7 @@ class IncrementalProblemFeed:
             away=run.pool_scheduled_away,
         )
         self._pending_for(pending, pool)[2][job.id] = r
+        pending.ids.add(job.id)
         if job.spec.gang_id:
             b.note_running_gang(job.queue, job.spec.gang_id, job.id)
             self._gang_of[job.id] = (pool, job.queue, job.spec.gang_id)

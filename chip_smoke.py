@@ -100,6 +100,26 @@ device_round:error drill at 8 shards that must re-run on 4 (K-K) with no
 supervisor failure, then the restore probe's 8 shards and a full re-upload
 (`mesh_resilience`).
 
+The service phase (`service_path`): the scheduler service --
+armada_tpu_torch.scheduler.Scheduler over an event log and a file-backed
+scheduler DB in a temporary directory, the ingestion pipeline between
+them, a JobDb with an IncrementalProblemFeed on the card, FairSchedulingAlgo
+on the card and a StandaloneLeaderController -- at 100,000 jobs in 16
+queues and 10,000 nodes in two pools (8,000 and 2,000) over 5 executors:
+every submit published and ingested, then a cycle that validates and
+leases; the executors' reports (running for every lease, succeeded for
+~30 %, a retryable error for ~5 %) and a jobset of ~1,000 jobs cancelled,
+a cycle; one executor's heartbeat lapsing past the timeout, a cycle that
+expires and requeues its runs; three steady cycles of 1,000 new submits.
+After each cycle and its ingest the DB and the JobDb must agree on every
+job, no job may hold two active runs, every run of the lapsed executor
+must be requeued, and K-B, K-C, K-A, K-I and K-H must launch.  The same
+script at 2,000 jobs x 200 nodes runs first on the card and with
+device="cpu", which must publish equal sequences and leave equal DB rows.
+Each cycle prints its seconds split by its trace spans, its ingest and
+its schedule's device ms by CUDA events (`service` lines); the event log's
+g++ build is logged with the compiler's version.
+
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", ...}}`.  Details go to
@@ -181,6 +201,18 @@ EXPLAIN_INTERVAL = 10
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def with_fields(obj, **fields):
+    """dataclasses.replace for the frozen dataclasses the worlds copy by the
+    million (JobSpec, NodeSpec, RunningJob; none has a __post_init__ to
+    re-run): a shallow copy with `fields` set, at half replace()'s cost."""
+    cls = type(obj)
+    out = object.__new__(cls)
+    d = out.__dict__
+    d.update(obj.__dict__)
+    d.update(fields)
+    return out
 
 
 def smi_line() -> str:
@@ -2654,7 +2686,7 @@ def pools_world(world: dict, dev, pool_nodes=POOL_NODES, bucket: int = POOL_BUCK
     if starts[-1] != len(nodes):
         raise AssertionError(f"the pools split {starts[-1]} nodes, the world has {len(nodes)}")
     pool_nodes = [
-        [dataclasses.replace(n, pool=names[p]) for n in nodes[starts[p]:starts[p + 1]]]
+        [with_fields(n, pool=names[p]) for n in nodes[starts[p]:starts[p + 1]]]
         for p in range(len(names))
     ]
     per_pool = len(specs) // len(names)
@@ -2662,7 +2694,7 @@ def pools_world(world: dict, dev, pool_nodes=POOL_NODES, bucket: int = POOL_BUCK
     runs = []
     for i, r in enumerate(running):
         pn = pool_nodes[min(i // runs_per_pool, len(names) - 1)]
-        runs.append(dataclasses.replace(r, node_id=pn[int(r.node_id[1:]) % len(pn)].id))
+        runs.append(with_fields(r, node_id=pn[int(r.node_id[1:]) % len(pn)].id))
     jdb, feed, algo, executors = load_algo(
         cfg, [n for pn in pool_nodes for n in pn], queues, specs, runs, dev,
         pool_of=lambda i: names[min(i // per_pool, len(names) - 1)], run_tag="prun",
@@ -3817,12 +3849,12 @@ def load_algo(config, nodes, queues, specs, running, device, *, incremental=True
     jobs = []
     for i, s in enumerate(specs):
         pool = (pool_of(i) if pool_of else names[0],)
-        jobs.append(Job(spec=dataclasses.replace(s, pools=pool), queued=True, validated=True,
+        jobs.append(Job(spec=with_fields(s, pools=pool), queued=True, validated=True,
                         pools=pool))
     for r in running:
         pool = node_pool[r.node_id]
         pc = cfg.priority_class(r.job.priority_class).priority
-        spec = dataclasses.replace(r.job, pools=(pool,))
+        spec = with_fields(r.job, pools=(pool,))
         jobs.append(Job(spec=spec, queued=False, validated=True, pools=(pool,), runs=(
             JobRun(id=f"run-{spec.id}", job_id=spec.id, node_id=r.node_id, node_name=r.node_id,
                    pool=pool, scheduled_at_priority=pc, running=True),
@@ -4212,6 +4244,411 @@ def market_path(dev, small: dict, built=None) -> dict:
         f"steady cycle's resident problem the host tables; launches {launches}")
     return dict(world_s=world_s, load_s=load_s, cycles=cycles, held=held, launches=launches,
                 small=small)
+
+
+# --- the service phase ---------------------------------------------------------------
+
+# The scheduler service (armada_tpu_torch.scheduler.Scheduler) end to end:
+# an event log and a file-backed scheduler DB in a temporary directory, the
+# ingestion pipeline between them, a JobDb with an IncrementalProblemFeed on
+# the card, FairSchedulingAlgo on the card and a StandaloneLeaderController.
+# 100,000 jobs in 16 queues and 10,000 nodes in two pools (8,000 and 2,000)
+# over 5 executors: the simulator path's scale, cut from the main path's 1M
+# x 50k for the script's time.  Rates are off (the round's burst of 1,000
+# still binds), as on the pools and market paths.
+SERVICE_WORLD = dict(num_nodes=10_000, num_jobs=100_000, num_queues=16, seed=13)
+SERVICE_SMALL = dict(num_nodes=200, num_jobs=2_000, num_queues=16, seed=13)
+SERVICE_POOLS = (("pool-a", 0.8, 4), ("pool-b", 0.2, 1))  # name, share of the nodes, executors
+SERVICE_JOBSET_SHARE = 0.01  # a jobset holds this share of the backlog of its queue's jobs
+SERVICE_STEADY = 3  # steady cycles after the expiry cycle
+SERVICE_BURST = 0.01  # new submits a steady cycle, a share of the backlog (1,000)
+SERVICE_SUCCEED = 0.30  # leased runs the executors report succeeded ...
+SERVICE_RETRY = 0.05  # ... and failed with a retryable error
+SERVICE_STEP_S = 10.0  # the fake clock between cycles
+SERVICE_T0 = 1_700_000_000.0
+
+
+class _ServiceClock:
+    def __init__(self, t: float):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def ns(self) -> int:
+        return int(self.t * 1e9)
+
+
+def service_world(spec: dict):
+    """(config, fleet, queues, specs, spec_factory): synthetic_world's jobs
+    and nodes, the nodes split over SERVICE_POOLS (fleet: executor id ->
+    (pool, nodes)); a queue's jobs fill its jobsets in turn, each jobset
+    SERVICE_JOBSET_SHARE of the backlog (1,000 jobs at full size)."""
+    from armada_tpu_torch.core.config import PoolConfig
+    from armada_tpu_torch.models.synthetic import synthetic_world
+
+    config, nodes, queues, specs, _running, spec_factory = synthetic_world(num_runs=0, **spec)
+    config = dataclasses.replace(
+        config, pools=tuple(PoolConfig(name) for name, _, _ in SERVICE_POOLS),
+        incremental_problem_build=True,
+        maximum_scheduling_rate=0.0, maximum_per_queue_scheduling_rate=0.0)
+    fleet = {}
+    start = 0
+    for k, (pool, share, execs) in enumerate(SERVICE_POOLS):
+        stop = len(nodes) if k == len(SERVICE_POOLS) - 1 else start + int(len(nodes) * share)
+        chunk = nodes[start:stop]
+        per = -(-len(chunk) // execs)
+        for e in range(execs):
+            ex = f"ex-{pool}-{e}"
+            fleet[ex] = (pool, tuple(with_fields(n, pool=pool, executor=ex)
+                                     for n in chunk[e * per:(e + 1) * per]))
+        start = stop
+
+    chunk = max(1, int(spec["num_jobs"] * SERVICE_JOBSET_SHARE))
+    seen = collections.Counter()
+
+    def with_jobset(batch):
+        out = []
+        for s in batch:
+            out.append(with_fields(s, jobset=f"js{seen[s.queue] // chunk:03d}"))
+            seen[s.queue] += 1
+        return out
+
+    return config, fleet, queues, with_jobset(specs), lambda n, t0: with_jobset(
+        spec_factory(n, t0))
+
+
+def _service_rows(db) -> dict:
+    """Every table of the scheduler DB, marker group ids (uuid4) stripped."""
+    conn = db._conn
+    out = {}
+    for (t,) in conn.execute("SELECT name FROM sqlite_master WHERE type = 'table' "
+                             "ORDER BY name").fetchall():
+        rows = [tuple(r) for r in conn.execute(f"SELECT * FROM {t} ORDER BY rowid")]
+        if t == "markers":
+            rows = [("",) + r[1:] for r in rows]
+        out[t] = rows
+    return out
+
+
+_JOB_FLAGS = ("queued", "queued_version", "validated", "cancelled", "succeeded", "failed")
+_RUN_ENDS = ("succeeded", "failed", "cancelled", "preempted", "returned")
+
+
+def _service_agree(db, jobdb, where: str) -> dict:
+    """The DB and the JobDb agree on every job's state (a job the JobDb
+    dropped is terminal in the DB); every JobDb run is the DB's, on the same
+    executor and node, active in both or ended in both (a cancelled run is
+    recorded as failed in the DB), and running alike while active; no job
+    holds two active runs in either."""
+    conn = db._conn
+    rows = {r[0]: r[1:] for r in conn.execute(
+        f"SELECT job_id, {', '.join(_JOB_FLAGS)} FROM jobs")}
+    runs = {r[0]: (r[1], r[2], r[3], any(r[4:])) for r in conn.execute(
+        f"SELECT run_id, executor, node_id, running, {', '.join(_RUN_ENDS)} FROM runs")}
+    jobs = {j.id: j for j in jobdb.read_txn().all_jobs()}
+    missing = sorted(set(jobs) - set(rows))[:5]
+    if missing:
+        raise AssertionError(f"{where}: JobDb jobs with no DB row: {missing}")
+    terminal = 0
+    for job_id, row in rows.items():
+        job = jobs.get(job_id)
+        if job is None:
+            if not any(row[3:]):
+                raise AssertionError(f"{where}: {job_id} left the JobDb but is live in the DB")
+            terminal += 1
+            continue
+        mine = (int(job.queued), job.queued_version, int(job.validated), int(job.cancelled),
+                int(job.succeeded), int(job.failed))
+        if mine != tuple(row):
+            raise AssertionError(f"{where}: {job_id} is {dict(zip(_JOB_FLAGS, mine))} in the "
+                                 f"JobDb, {dict(zip(_JOB_FLAGS, row))} in the DB")
+        active = 0
+        for run in job.runs:
+            ended = run.in_terminal_state()
+            mine = (run.executor, run.node_id, int(run.running) if not ended else None, ended)
+            r = runs.get(run.id)
+            theirs = None if r is None else (r[0], r[1], r[2] if not r[3] else None, r[3])
+            if mine != theirs:
+                raise AssertionError(f"{where}: run {run.id} of {job_id} is (executor, node, "
+                                     f"running, ended) {mine} in the JobDb, {theirs} in the DB")
+            active += not ended
+        if active > 1:
+            raise AssertionError(f"{where}: {job_id} holds {active} active runs")
+    (twice,) = conn.execute(
+        "SELECT COUNT(*) FROM (SELECT job_id FROM runs WHERE succeeded = 0 AND failed = 0 "
+        "AND cancelled = 0 AND preempted = 0 AND returned = 0 GROUP BY job_id "
+        "HAVING COUNT(*) > 1)").fetchone()
+    if twice:
+        raise AssertionError(f"{where}: {twice} jobs hold two active runs in the DB")
+    return dict(jobs=len(rows), in_jobdb=len(jobs), terminal_dropped=terminal, runs=len(runs))
+
+
+def service_run(dev, spec: dict, full: bool) -> dict:
+    """Drive the scheduler service through its cycles on `dev`: (1) publish
+    and ingest every submit, the executors register, cycle -- validation and
+    leases; (2) the executors report running for every lease, succeeded for
+    SERVICE_SUCCEED of them and a retryable error for SERVICE_RETRY, and one
+    jobset is cancelled, cycle; (3) one executor's heartbeat lapses past the
+    timeout, cycle -- its runs expire and requeue; (4) SERVICE_STEADY cycles,
+    each with a burst of new submits.  After every cycle and its ingest the
+    DB and the JobDb must agree.  `full` also resets the launch counters
+    before the first cycle, checks every lapsed run was requeued and
+    reports the counters; the result carries every cycle's published bytes
+    and the final DB rows, for a comparison across devices."""
+    import tempfile
+
+    import torch
+
+    from armada_tpu_torch import kernels
+    from armada_tpu_torch import models as M
+    from armada_tpu_torch.eventlog import EventLog, Publisher
+    from armada_tpu_torch.eventlog import log as elog
+    from armada_tpu_torch.events import schema as pb
+    from armada_tpu_torch.events.convert import job_spec_to_proto
+    from armada_tpu_torch.ingest import IngestionPipeline, SchedulerDb, convert_sequences
+    from armada_tpu_torch.jobdb.jobdb import JobDb
+    from armada_tpu_torch.models import explain as X
+    from armada_tpu_torch.models import verify as V
+    from armada_tpu_torch.ops import trace
+    from armada_tpu_torch.scheduler import (ExecutorSnapshot, FairSchedulingAlgo,
+                                            IncrementalProblemFeed, Scheduler,
+                                            StandaloneLeaderController)
+
+    cuda = dev.type == "cuda"
+    tw = time.perf_counter()
+    config, fleet, queues, specs, spec_factory = service_world(spec)
+    world_s = time.perf_counter() - tw
+    clock = _ServiceClock(SERVICE_T0)
+    tmp = tempfile.TemporaryDirectory(prefix="armada-service-")
+    V.reset_verify_state()
+    X.reset_cadence()
+    vtok = V.arm_default(True)
+    etok = X.arm_default(EXPLAIN_INTERVAL)
+    log_ = EventLog(os.path.join(tmp.name, "log"), num_partitions=4)
+    db = SchedulerDb(os.path.join(tmp.name, "scheduler.sqlite"))
+    round_fn = M.schedule_round
+    try:
+        publisher = Publisher(log_, clock=clock)
+        pipeline = IngestionPipeline(log_, db, convert_sequences, consumer_name="scheduler")
+        jobdb = JobDb(config)
+        feed = IncrementalProblemFeed(config, device=dev)
+        feed.attach(jobdb)
+        run_ids = iter(range(10**9))
+        algo = FairSchedulingAlgo(config, queues=lambda: queues, clock_ns=clock.ns,
+                                  run_id_factory=lambda: f"run-{next(run_ids):08d}",
+                                  feed=feed, device=dev)
+        # every round of the cycle (K-B and what it launches), by CUDA
+        # events on the card around the models' round call
+        round_events: list = []
+
+        def timed_round(p, **kw):
+            if not cuda:
+                return round_fn(p, **kw)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = round_fn(p, **kw)
+            ev[1].record()
+            round_events.append(ev)
+            return out
+
+        M.schedule_round = timed_round
+        sched = Scheduler(db, jobdb, algo, publisher, StandaloneLeaderController(), config,
+                          clock=clock, ingest_step=pipeline.run_until_caught_up)
+
+        def sequence(seqs: dict, queue: str, jobset: str):
+            seq = seqs.get((queue, jobset))
+            if seq is None:
+                seq = seqs[(queue, jobset)] = pb.EventSequence(queue=queue, jobset=jobset)
+            return seq
+
+        def submit(batch):
+            seqs: dict = {}
+            for s in batch:
+                sequence(seqs, s.queue, s.jobset).events.add(
+                    created_ns=clock.ns(),
+                    submit_job=pb.SubmitJob(job_id=s.id, spec=job_spec_to_proto(s)))
+            publisher.publish(list(seqs.values()))
+
+        def heartbeat(skip=()):
+            for ex, (pool, nodes) in fleet.items():
+                if ex not in skip:
+                    snap = ExecutorSnapshot(id=ex, pool=pool, nodes=nodes,
+                                            last_update_ns=clock.ns())
+                    db.upsert_executor(ex, snap.to_json(), snap.last_update_ns)
+
+        cycles = []
+        published = []
+
+        def cycle(name: str, ingest_s: float):
+            round_events.clear()
+            t0 = time.perf_counter()
+            res = sched.cycle()
+            wall = time.perf_counter() - t0
+            if cuda:
+                torch.cuda.synchronize(dev)
+            round_ms = [a.elapsed_time(b) for a, b in round_events]
+            stages = trace.recorder().last_stages()
+            t1 = time.perf_counter()
+            pipeline.run_until_caught_up()
+            after_s = time.perf_counter() - t1
+            t2 = time.perf_counter()
+            agree = _service_agree(db, jobdb, f"service {name}")
+            agree_s = time.perf_counter() - t2
+            kinds = res.events_by_kind()
+            pools = {ps.pool: ps.round_s
+                     for ps in (res.scheduler_result.pools if res.scheduler_result else ())}
+            c = dict(cycle=name, wall_s=wall, stages_s=stages, ingest_before_s=ingest_s,
+                     ingest_after_s=after_s, agree_s=agree_s,
+                     round_ms=round_ms, events=kinds,
+                     scheduled=len(res.scheduler_result.scheduled)
+                     if res.scheduler_result else 0, round_s=pools, agree=agree)
+            cycles.append(c)
+            published.append([s.SerializeToString(deterministic=True) for s in res.published])
+            split = ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+            log(f"service {dev.type} {spec['num_jobs']} jobs, cycle {name}: {wall:.3f} s "
+                f"({split}); rounds {[round(x, 3) for x in round_ms]} ms (CUDA events); ingest "
+                f"{ingest_s:.3f} s before, {after_s:.3f} s after; {kinds}; DB and JobDb "
+                f"agree on {agree['jobs']} jobs ({agree_s:.2f} s)")
+            return res
+
+        def ingest() -> float:
+            t0 = time.perf_counter()
+            pipeline.run_until_caught_up()
+            return time.perf_counter() - t0
+
+        # (1) every submit, then the executors: validation and leases
+        t0 = time.perf_counter()
+        submit(specs)
+        publish_s = time.perf_counter() - t0
+        ingest_s = ingest()
+        heartbeat()
+        if full:
+            kernels.reset_launches()
+        cycle("submit", ingest_s)
+
+        # (2) the executors report; one jobset is cancelled
+        clock.t += SERVICE_STEP_S
+        heartbeat()
+        leased = sorted((j for j in jobdb.read_txn().all_jobs()
+                         if j.latest_run is not None and not j.latest_run.in_terminal_state()),
+                        key=lambda j: j.id)
+        if not leased:
+            raise AssertionError(f"service {dev.type}: the first cycle leased nothing")
+        rng = np.random.default_rng(spec["seed"])
+        fate = rng.random(len(leased))
+        seqs: dict = {}
+        for job, u in zip(leased, fate):
+            run = job.latest_run
+            events = sequence(seqs, job.queue, job.jobset).events
+            events.add(created_ns=clock.ns(), job_run_running=pb.JobRunRunning(
+                job_id=job.id, run_id=run.id, node_id=run.node_id))
+            if u < SERVICE_SUCCEED:
+                events.add(created_ns=clock.ns(), job_run_succeeded=pb.JobRunSucceeded(
+                    job_id=job.id, run_id=run.id))
+            elif u < SERVICE_SUCCEED + SERVICE_RETRY:
+                events.add(created_ns=clock.ns(), job_run_errors=pb.JobRunErrors(
+                    job_id=job.id, run_id=run.id, errors=[pb.Error(
+                        reason="podLost", message="the pod was lost", terminal=False,
+                        lease_returned=True, node=run.node_id)]))
+        cancelled = (specs[0].queue, specs[0].jobset)
+        sequence(seqs, *cancelled).events.add(created_ns=clock.ns(),
+                                              cancel_job_set=pb.CancelJobSet(reason="user"))
+        publisher.publish(list(seqs.values()))
+        res = cycle("reports", ingest())
+        kinds = res.events_by_kind()
+        if not kinds.get("job_succeeded") or not kinds.get("cancelled_job") or not kinds.get(
+                "job_requeued"):
+            raise AssertionError(f"service {dev.type}, reports cycle: {kinds}")
+
+        # (3) one executor's heartbeat lapses past the timeout
+        lapsed = sorted(fleet)[0]
+        on_lapsed = {j.latest_run.id: j.id for j in jobdb.read_txn().all_jobs()
+                     if j.latest_run is not None and not j.latest_run.in_terminal_state()
+                     and j.latest_run.executor == lapsed}
+        clock.t += config.executor_timeout_s + SERVICE_STEP_S
+        heartbeat(skip=(lapsed,))
+        res = cycle("expiry", ingest())
+        requeued = {ev.job_requeued.job_id for s in res.published for ev in s.events
+                    if ev.WhichOneof("event") == "job_requeued"}
+        expired = {ev.job_run_errors.run_id for s in res.published for ev in s.events
+                   if ev.WhichOneof("event") == "job_run_errors"
+                   and ev.job_run_errors.errors[0].reason == "leaseExpired"}
+        returned = {r[0] for r in db._conn.execute("SELECT run_id FROM runs WHERE returned = 1")}
+        lost = sorted(set(on_lapsed) - (expired & returned))[:5]
+        if not on_lapsed or lost or not set(on_lapsed.values()) <= requeued:
+            raise AssertionError(f"service {dev.type}, expiry: {len(on_lapsed)} runs on "
+                                 f"{lapsed}, not expired and returned: {lost}, requeued "
+                                 f"{len(set(on_lapsed.values()) & requeued)}")
+
+        # (4) steady cycles, each with a burst of new submits
+        burst = max(1, int(spec["num_jobs"] * SERVICE_BURST))
+        for k in range(SERVICE_STEADY):
+            clock.t += SERVICE_STEP_S
+            heartbeat(skip=(lapsed,))
+            submit(spec_factory(burst, clock.t))
+            res = cycle(f"steady {k + 1}", ingest())
+            if not res.scheduler_result or not res.scheduler_result.scheduled:
+                raise AssertionError(f"service {dev.type}, steady cycle {k + 1} leased nothing")
+        launches = dict(kernels.LAUNCHES) if full else {}
+        vs = V.verify_state()
+        if vs.failures or vs.rounds < len(cycles):
+            raise AssertionError(f"service path verification: {vs.snapshot()}")
+        rows = _service_rows(db)
+        return dict(world_s=world_s, publish_s=publish_s, cycles=cycles, launches=launches,
+                    published=published, rows=rows, lapsed=lapsed,
+                    lapsed_runs=len(on_lapsed), cancelled_jobset=list(cancelled),
+                    eventlog_build=dict(elog.BUILD_INFO))
+    finally:
+        M.schedule_round = round_fn
+        V.disarm_default(vtok)
+        X.disarm_default(etok)
+        db.close()
+        log_.close()
+        tmp.cleanup()
+
+
+SERVICE_KERNELS = ("round", "compact", "fair_shares", "verify", "slab")
+
+
+def service_path(dev) -> dict:
+    """The service phase: SERVICE_SMALL on the card and with device="cpu"
+    (equal published sequences and DB rows), then SERVICE_WORLD on the card,
+    whose launches of K-B, K-C, K-A, K-I and K-H must rise."""
+    import torch
+
+    small_card = service_run(dev, SERVICE_SMALL, full=False)
+    small_cpu = service_run(torch.device("cpu"), SERVICE_SMALL, full=False)
+    if small_card["published"] != small_cpu["published"]:
+        diff = [k for k, (a, b) in enumerate(zip(small_card["published"], small_cpu["published"]))
+                if a != b]
+        raise AssertionError(f"service, small world: the card and device='cpu' publish "
+                             f"different sequences in cycles {diff}")
+    for table, rows in small_card["rows"].items():
+        if rows != small_cpu["rows"].get(table):
+            raise AssertionError(f"service, small world: the card and device='cpu' leave "
+                                 f"different {table} rows")
+    held = dict(cycles=len(small_card["published"]),
+                sequences=sum(map(len, small_card["published"])),
+                rows={t: len(r) for t, r in small_card["rows"].items()})
+    log(f"service, small world: the card and device='cpu' published equal sequences and "
+        f"left equal DB rows {held}")
+    full = service_run(dev, SERVICE_WORLD, full=True)
+    missing = [k for k in SERVICE_KERNELS if full["launches"].get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"service path: kernels {missing} were not launched "
+                             f"({full['launches']})")
+    build = full["eventlog_build"]
+    log(f"service path: {len(full['cycles'])} cycles at {SERVICE_WORLD['num_jobs']} jobs x "
+        f"{SERVICE_WORLD['num_nodes']} nodes; publish {full['publish_s']:.2f} s; launches "
+        f"{full['launches']}; the event log built by {build.get('version')} "
+        f"({build.get('seconds', 0.0):.2f} s)")
+    full.pop("published")
+    full.pop("rows")
+    for k in ("published", "rows"):
+        small_card.pop(k)
+        small_cpu.pop(k)
+    return dict(full, small_held=held, small_card=small_card, small_cpu=small_cpu)
 
 
 # --- the simulator path --------------------------------------------------------------
@@ -5166,6 +5603,8 @@ def main() -> int:
     mark("small rounds and incremental")
     report["resilience_small"] = resilience_small(dev, small)
     mark("resilience, small world")
+    report["service"] = service = service_path(dev)
+    mark("service phase")
 
     log(f"main path: world built in {world['seconds']:.1f} s (beside the kernels' build)")
     mp_report = main_path(dev, world)
@@ -5208,6 +5647,9 @@ def main() -> int:
         # the market path's launches beside each row's own path's
         if row["name"] in ("round", "compact", "fair_shares", "slab", "verify", "explain"):
             row["market_launches"] = market["launches"][row["name"]]
+        # and the service phase's, on the rows of the kernels it launches
+        if service["launches"].get(row["name"], 0) > 0:
+            row["service_launches"] = service["launches"][row["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

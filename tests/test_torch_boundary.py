@@ -1,6 +1,7 @@
 """The port's boundaries: imports, devices, and where the kernels run.
 
-- armada_tpu_torch and chip_smoke.py import neither jax nor the JAX package.
+- armada_tpu_torch and chip_smoke.py import neither jax, the JAX package nor
+  google.protobuf (the port's event schema is its own).
 - With no card, the entry points refuse to run unless the caller passes
   device="cpu", and chip_smoke.py exits non-zero printing no result.
 - A kernel wrapper given CPU tensors runs the plain version and leaves the
@@ -37,7 +38,8 @@ if _WORKERS > 1:
 
 _FORBIDDEN = (
     "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-    "or m == 'jaxlib' or m == 'armada_tpu' or m.startswith('armada_tpu.'))\n"
+    "or m == 'jaxlib' or m == 'armada_tpu' or m.startswith('armada_tpu.') "
+    "or m == 'google.protobuf' or m.startswith('google.protobuf.'))\n"
     "assert not bad, bad\n"
 )
 
@@ -70,7 +72,8 @@ def test_chip_smoke_imports_no_jax():
             names = [node.module or ""]
         for n in names:
             assert not (n == "jax" or n.startswith("jax.") or n == "armada_tpu"
-                        or n.startswith("armada_tpu.")), n
+                        or n.startswith("armada_tpu.") or n == "google.protobuf"
+                        or n.startswith("google.protobuf.")), n
     out = _run("import sys\nimport chip_smoke\n" + _FORBIDDEN)
     assert out.returncode == 0, out.stderr
 
@@ -225,6 +228,39 @@ def test_serving_subpackages_import_no_jax():
         "        'armada_tpu_torch.simulator.spec', 'armada_tpu_torch.simulator.sink',\n"
         "        'armada_tpu_torch.simulator.__main__'}\n"
         "assert want <= set(names), names\n" + _FORBIDDEN
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+
+
+def test_service_subpackages_import_no_jax():
+    """The scheduler service's modules -- the event schema (events), the
+    event log (eventlog), the scheduler DB and its ingester (ingest), and
+    the service cycle in armada_tpu_torch.scheduler -- import without jax,
+    the JAX package or google.protobuf, and the scheduler package exports
+    the JAX package's service names."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import armada_tpu_torch.events, armada_tpu_torch.eventlog, armada_tpu_torch.ingest\n"
+        "import armada_tpu_torch.scheduler as S\n"
+        "names = []\n"
+        "for pkg in (armada_tpu_torch.events, armada_tpu_torch.eventlog,\n"
+        "            armada_tpu_torch.ingest, S):\n"
+        "    names += [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "want = {'armada_tpu_torch.events.schema', 'armada_tpu_torch.events.convert',\n"
+        "        'armada_tpu_torch.eventlog.log', 'armada_tpu_torch.eventlog.publisher',\n"
+        "        'armada_tpu_torch.ingest.dbops', 'armada_tpu_torch.ingest.sqladapter',\n"
+        "        'armada_tpu_torch.ingest.schedulerdb', 'armada_tpu_torch.ingest.converter',\n"
+        "        'armada_tpu_torch.ingest.stats', 'armada_tpu_torch.ingest.dlq',\n"
+        "        'armada_tpu_torch.ingest.shards', 'armada_tpu_torch.ingest.pipeline',\n"
+        "        'armada_tpu_torch.scheduler.leader', 'armada_tpu_torch.scheduler.reconciliation',\n"
+        "        'armada_tpu_torch.scheduler.submitcheck', 'armada_tpu_torch.scheduler.slo',\n"
+        "        'armada_tpu_torch.scheduler.scheduler'}\n"
+        "assert want <= set(names), sorted(want - set(names))\n"
+        "import armada_tpu_torch.core.backoff, armada_tpu_torch.core.statefile\n"
+        "assert {'Scheduler', 'CycleResult', 'LeaderController', 'StandaloneLeaderController',\n"
+        "        'FileLeaseLeaderController'} <= set(S.__all__), S.__all__\n" + _FORBIDDEN
     )
     out = _run(code)
     assert out.returncode == 0, out.stderr
